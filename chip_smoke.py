@@ -5,20 +5,44 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. Print the card (``nvidia-smi`` name and power limit) and build the
-   blur+NMS CUDA kernel from ``tpupose_torch/csrc/blur_nms.cu``.
-2. Hold the kernel against its plain PyTorch version on the card at the
-   fast path's map shape (18, 320, 432), a planted-peak map (18, 46, 62),
-   a map smaller than the blur radius (3, 7, 9) and a large one
-   (18, 584, 584): masks equal and smoothed maps bit-equal.  Time both with
-   CUDA events.
-3. Drive the slice: ``PoseDetector`` with the full 6-stage CocoPoseNet at
-   the default 368/320 sizes, seeded random weights calibrated so the maps
-   carry peaks, three seeded 480x640 frames through ``__call__`` and the
-   same frames through ``detect_batch``.  Checks that the kernel ran, that
-   poses were found, that both entry points agree, that the card's
-   postprocess equals the CPU one on the same maps, and that the card's
-   maps agree with a CPU forward.
+1. Print the card (``nvidia-smi`` name and power limit) and build the three
+   CUDA kernels from ``tpupose_torch/csrc/`` (``blur_nms.cu``,
+   ``conv7_s8.cu``, ``requant.cu``), one ``nvcc`` per source, in parallel.
+2. Hold the blur+NMS kernel against its plain PyTorch version on the card at
+   the fast path's map shape (18, 320, 432), the precise path's
+   (18, 480, 640), a planted-peak map (18, 46, 62), a map smaller than the
+   blur radius (3, 7, 9) and a large one (18, 584, 584): masks equal and
+   smoothed maps bit-equal.  Time both with CUDA events.
+3. Drive the f32 fast path: ``PoseDetector`` with the full 6-stage
+   CocoPoseNet at the default 368/320 sizes, seeded random weights
+   calibrated so the maps carry peaks, three seeded 480x640 frames through
+   ``__call__`` and the same frames through ``detect_batch``.  Checks that
+   the kernel ran, that poses were found, that both entry points agree,
+   that the card's postprocess equals the CPU one on the same maps, and
+   that the card's maps agree with a CPU forward.
+4. Hold the int8 kernels against their plain versions, bit-equal: conv7 at
+   the four pyramid grids, with Mconv1's three groups and 128 -> 128, at
+   batches of 2 and 3 and at a grid smaller than the window; requant at
+   conv1_2's shapes (fast path, pyramid scales 0.5 and 2.0 at B = 2) and a
+   refine stage's.  Time both with CUDA events.
+5. Drive the quantized fast path: ``quantize([f, f[:, ::-1]])`` of the
+   calibrated detector, the three frames through ``__call__`` and
+   ``detect_batch``.  Checks 50 conv7 and 30 requant launches per forward,
+   poses, both entry points agreeing, the card's int8 head maps bit-equal to
+   the CPU's int8 forward on the same tree, and the int8 maps' fidelity to
+   the f32 ones (rms, corr; fails below corr 0.9).
+6. Drive the precise pyramid (4 scales), f32 and quantized, on two frames
+   through ``__call__`` and ``detect_batch`` (B = 2).  Checks poses, both
+   entry points agreeing, blur+NMS at the original (18, 480, 640)
+   resolution, conv7 at all four pyramid grids, and, per pyramid scale, the
+   card's int8 maps bit-equal to the CPU's int8 forward on the same tree.
+
+After each driven path (3, 5, 6), every kernel is held against its plain
+version, bit-equal, on seeded random inputs at every shape the path gave it
+(the wrappers' ``shapes`` counters).
+7. Print where the time goes: the fast path's split, the int8 forward with
+   the conv7 kernel against its im2col route, f32 against int8 precise
+   ``__call__``, and conv7 against its plain version at each pyramid grid.
 
 The last two lines are the kernels' JSON record and the result line.
 """
@@ -85,7 +109,8 @@ def check_kernel(bn, cfg):
     rng = np.random.RandomState(0)
     worst = 0.0
     times = None
-    for shape in [(18, 320, 432), (18, 46, 62), (3, 7, 9), (18, 584, 584)]:
+    for shape in [(18, 320, 432), (18, 480, 640), (18, 46, 62), (3, 7, 9),
+                  (18, 584, 584)]:
         x = torch.from_numpy(_planted(rng, *shape)).cuda()
         s, m = bn.blur_nms(x, sigma, thresh)
         rs, rm = bn.blur_nms_reference(x, sigma, thresh)
@@ -123,7 +148,7 @@ def _same_tables(a, b, score_atol):
 
 def run_slice(bn, cfg, frames):
     """Phase 3 on (B, H, W, 3) uint8 ``frames``; returns the kernel
-    launches counted over the main path."""
+    launches counted over the main path and the calibrated detector."""
     import numpy as np
     import torch
 
@@ -149,7 +174,7 @@ def run_slice(bn, cfg, frames):
 
     # --- the main path, counted ---
     torch.cuda.reset_peak_memory_stats()
-    bn.blur_nms.launches = 0
+    _reset_counts()
     singles, call_ms = [], []
     for f in frames:
         t0 = time.perf_counter()
@@ -157,6 +182,7 @@ def run_slice(bn, cfg, frames):
         call_ms.append((time.perf_counter() - t0) * 1e3)
     batched = det.detect_batch(frames)
     launches = bn.blur_nms.launches
+    shapes = _read_shapes()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     print(f"main path: blur_nms launches={launches}, "
           f"poses per frame (__call__)={[len(p) for p, _ in singles]}, "
@@ -174,6 +200,7 @@ def run_slice(bn, cfg, frames):
         # differ by ~1e-5, which reaches the scores, not the coordinates.
         if not _same_tables(a, b, score_atol=1e-4):
             raise AssertionError(f"frame {i}: __call__ != detect_batch")
+    check_path_shapes("fast f32 path", cfg, shapes)
 
     # --- card postprocess vs CPU postprocess on the same maps ---
     (paf, hm), _ = det.compute_maps(frames[0])
@@ -242,7 +269,433 @@ def run_slice(bn, cfg, frames):
           f"input, {map_hw} maps, "
           f"{n_conn} valid connections): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}))
-    return launches
+    return launches, det
+
+
+def _alternating_ms(kernel_fn, plain_fn, iters: int):
+    """Mean CUDA-event ms of ``kernel_fn`` and ``plain_fn``, timed in the
+    order plain, kernel, kernel, plain."""
+    import statistics as st
+
+    times = {"kernel": [], "plain": []}
+    for order in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel_fn if order == "kernel" else plain_fn
+        times[order].append(_cuda_ms(fn, iters))
+    return st.mean(times["kernel"]), st.mean(times["plain"])
+
+
+def _conv7_case(rng, b, h, w, channels):
+    import numpy as np
+    import torch
+
+    def put(a):
+        return torch.from_numpy(a).cuda()
+
+    parts = [put(rng.randint(0, 128, (b, h, w, c)).astype(np.int8))
+             for c in channels]
+    kernels = [put(rng.randint(-127, 128, (7, 7, c, 128)).astype(np.int8))
+               for c in channels]
+    mults = [put((np.abs(rng.randn(128)) * 1e-4 + 1e-5).astype(np.float32))
+             for _ in channels]
+    bias = put((rng.randn(128) * 0.01).astype(np.float32))
+    return parts, kernels, mults, bias
+
+
+def _requant_case(gen, shape, groups):
+    """Seeded s32 accumulators, mults and bias on the card; the products
+    span about [-100, 100], so rounding and both clips are exercised."""
+    import torch
+
+    accs = [torch.randint(-2**20, 2**20, shape, generator=gen,
+                          dtype=torch.int32, device="cuda")
+            for _ in range(groups)]
+    mults = [torch.rand(shape[-1], generator=gen, device="cuda") * 1e-4
+             for _ in range(groups)]
+    bias = torch.randn(shape[-1], generator=gen, device="cuda")
+    return accs, mults, bias
+
+
+PYRAMID_GRIDS = ((23, 31), (46, 62), (69, 92), (92, 123))
+MCONV1_CHANNELS = (38, 19, 128)
+
+
+def check_path_shapes(label, cfg, shapes):
+    """Hold each kernel against its plain version, bit-equal, on seeded
+    random inputs at every shape one driven path gave it.  ``shapes``: the
+    wrappers' ``shapes`` counters, copied just after the path ran."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.ops import blur_nms as bn
+    from tpupose_torch.ops import conv7 as c7
+    from tpupose_torch.ops import requant as rq
+
+    rng = np.random.RandomState(1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sigma, thresh = cfg.gaussian_sigma, cfg.heatmap_peak_thresh
+    for shape in sorted(shapes["blur_nms"]):
+        x = torch.from_numpy(_planted(rng, *shape)).cuda()
+        (s, m), (rs, rm) = (bn.blur_nms(x, sigma, thresh),
+                            bn.blur_nms_reference(x, sigma, thresh))
+        if not (torch.equal(s, rs) and torch.equal(m, rm)):
+            raise AssertionError(f"{label}: blur_nms disagrees at {shape}")
+    for b, h, w, channels in sorted(shapes["conv7_s8"]):
+        parts, kernels, mults, bias = _conv7_case(rng, b, h, w, channels)
+        got = c7.conv7_s8(parts, kernels, mults, bias)
+        ref = c7.conv7_s8_reference(parts, kernels, mults, bias)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: conv7_s8 disagrees at "
+                                 f"{(b, h, w)} groups {channels}")
+    for shape, groups, relu, lo in sorted(shapes["requant_epilogue"]):
+        accs, mults, bias = _requant_case(gen, shape, groups)
+        got = rq.requant_epilogue(accs, mults, bias, relu, lo)
+        ref = rq.requant_epilogue_reference(accs, mults, bias, relu, lo)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: requant disagrees at {shape} "
+                                 f"groups {groups} relu {relu} lo {lo}")
+    torch.cuda.synchronize()
+    print(f"{label}: every kernel bit-equal to its plain version at every "
+          f"shape the path gave it: blur_nms "
+          f"{sorted(shapes['blur_nms'])}, conv7_s8 "
+          f"{len(shapes['conv7_s8'])} shapes, requant_epilogue "
+          f"{len(shapes['requant_epilogue'])} shapes (largest "
+          f"{max(shapes['requant_epilogue'], default=None, key=_numel)})")
+
+
+def _numel(requant_key):
+    import math
+
+    return math.prod(requant_key[0])
+
+
+def check_int8_kernels():
+    """Phase 4: conv7 and requant bit-equal to their plain versions.
+    Returns ``{name: (max_abs_err, ms, plain_ms)}`` at the representative
+    shapes (conv7 at (1, 46, 62) 128 -> 128, requant at conv1_2's
+    (1, 368, 496, 64)) and conv7's ``(kernel ms, plain ms)`` per pyramid
+    grid."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.ops import conv7 as c7
+    from tpupose_torch.ops import requant as rq
+
+    rng = np.random.RandomState(0)
+    out, per_grid, worst = {}, {}, 0
+    cases = [((1, *hw), channels) for hw in PYRAMID_GRIDS
+             for channels in (MCONV1_CHANNELS, (128,))]
+    cases += [((2, 46, 62), MCONV1_CHANNELS), ((3, 46, 62), (128,)),
+              ((1, 5, 7), (128,))]
+    for bhw, channels in cases:
+        parts, kernels, mults, bias = _conv7_case(rng, *bhw, channels)
+        packed = [c7.pack_conv7_weights(k) for k in kernels]
+        got = c7.conv7_s8(parts, kernels, mults, bias, packed=packed)
+        ref = c7.conv7_s8_reference(parts, kernels, mults, bias)
+        torch.cuda.synchronize()
+        err = (got.int() - ref.int()).abs().max().item()
+        worst = max(worst, err)
+        print(f"conv7_s8 {bhw} groups {channels}: bit_equal="
+              f"{torch.equal(got, ref)} max_abs_err={err} "
+              f"positive={float((ref > 0).float().mean()):.3f}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"conv7_s8 kernel disagrees at {bhw} "
+                                 f"{channels}")
+        if bhw[0] == 1 and bhw[1:] in PYRAMID_GRIDS:
+            times = _alternating_ms(
+                lambda: c7.conv7_s8(parts, kernels, mults, bias,
+                                    packed=packed),
+                lambda: c7.conv7_s8_reference(parts, kernels, mults, bias),
+                iters=20)
+            if channels == (128,):
+                per_grid[bhw[1:]] = times
+            print(f"conv7_s8 {bhw} groups {channels}: kernel {times[0]!r} "
+                  f"ms, plain {times[1]!r} ms (CUDA events, mean of 2x20)")
+    out["conv7_s8"] = (float(worst), *per_grid[(46, 62)])
+
+    worst = 0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape, groups, relu, lo in [((1, 368, 496, 64), 1, True, 0.0),
+                                    ((1, 184, 248, 64), 1, True, 0.0),
+                                    ((2, 736, 984, 64), 1, True, 0.0),
+                                    ((1, 46, 62, 128), 1, True, 0.0),
+                                    ((1, 46, 62, 128), 3, False, -128.0)]:
+        accs, mults, bias = _requant_case(gen, shape, groups)
+        got = rq.requant_epilogue(accs, mults, bias, relu, lo)
+        ref = rq.requant_epilogue_reference(accs, mults, bias, relu, lo)
+        torch.cuda.synchronize()
+        err = (got.int() - ref.int()).abs().max().item()
+        worst = max(worst, err)
+        print(f"requant_epilogue {shape} groups {groups} relu {relu} lo "
+              f"{lo}: bit_equal={torch.equal(got, ref)} max_abs_err={err}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"requant kernel disagrees at {shape}")
+        if shape == (1, 368, 496, 64):
+            times = _alternating_ms(
+                lambda: rq.requant_epilogue(accs, mults, bias, relu, lo),
+                lambda: rq.requant_epilogue_reference(accs, mults, bias,
+                                                      relu, lo), iters=50)
+            print(f"requant_epilogue {shape}: kernel {times[0]!r} ms, "
+                  f"plain {times[1]!r} ms (CUDA events, mean of 2x50)")
+    out["requant_epilogue"] = (float(worst), *times)
+    return out, per_grid
+
+
+def _wrappers():
+    from tpupose_torch.ops import blur_nms as bn
+    from tpupose_torch.ops import conv7 as c7
+    from tpupose_torch.ops import requant as rq
+
+    return {"blur_nms": bn.blur_nms, "conv7_s8": c7.conv7_s8,
+            "requant_epilogue": rq.requant_epilogue}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+        fn.shapes.clear()
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _read_shapes():
+    return {name: dict(fn.shapes) for name, fn in _wrappers().items()}
+
+
+def _fidelity(f, q):
+    """(rms / max|f|, correlation) of int8 maps ``q`` against f32 ``f``."""
+    import numpy as np
+
+    f, q = f.double().cpu().numpy().ravel(), q.double().cpu().numpy().ravel()
+    rms = np.sqrt(((f - q) ** 2).mean()) / np.abs(f).max()
+    return float(rms), float(np.corrcoef(f, q)[0, 1])
+
+
+def run_quantized(f32_det, cfg, frames):
+    """Phase 5; returns the launch counts of the quantized fast path, the
+    quantized detector and its 368x496 input."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch import quant as tq
+    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+    from tpupose_torch.ops.resize import resize_u8_linear
+
+    t0 = time.perf_counter()
+    det = PoseDetector(cfg=cfg, device="cuda", seed=0)
+    det.model.load_state_dict(f32_det.model.state_dict())
+    det.quantize([frames[0], frames[0][:, ::-1]])
+    if det.conv7_impl != "kernel":
+        raise AssertionError(f"quantize() chose {det.conv7_impl!r}")
+    det(frames[0])                                   # warm-up
+    torch.cuda.synchronize()
+    print(f"quantize (calibration on 2 frames) + warm-up: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # --- the main path, counted ---
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    singles = [det(f) for f in frames]
+    batched = det.detect_batch(frames)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    shapes = _read_shapes()
+    forwards = len(frames) + 1
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    print(f"quantized fast path: launches {counts} over {forwards} "
+          f"forwards, poses per frame (__call__)="
+          f"{[len(p) for p, _ in singles]}, (detect_batch)="
+          f"{[len(p) for p, _ in batched]}, peak device memory "
+          f"{peak_mib:.1f} MiB")
+    if (counts["conv7_s8"] != 50 * forwards
+            or counts["requant_epilogue"] != 30 * forwards
+            or counts["blur_nms"] < 2 * len(frames)):
+        raise AssertionError(f"quantized fast path launches {counts}")
+    if sum(len(p) for p, _ in singles) < 1:
+        raise AssertionError("quantized: no pose found in any frame")
+    for i, (a, b) in enumerate(zip(singles, batched)):
+        if not _same_tables(a, b, score_atol=1e-4):
+            raise AssertionError(f"quantized frame {i}: __call__ != "
+                                 f"detect_batch")
+    check_path_shapes("quantized fast path", cfg, shapes)
+
+    # --- the card's int8 forward vs the CPU's on the same tree ---
+    (in_h, in_w), _ = det._geometry(*frames.shape[1:3])
+    resized = resize_u8_linear(frames[0], (in_w, in_h))
+    x = torch.from_numpy(resized[None]).cuda().float() / 255.0 - 0.5
+    cpu_apply = tq.make_quant_apply(
+        det.quant_static, tq.qtree_to_device(det.qtree, det.quant_static,
+                                             "cpu"))
+    with torch.no_grad(), float32_numerics():
+        pafs, hms = det._quant_forward(x)
+        t0 = time.perf_counter()
+        cpafs, chms = cpu_apply(x.cpu())
+        cpu_s = time.perf_counter() - t0
+        fpafs, fhms = det.model(x)
+    for name, got, ref in (("paf", pafs, cpafs), ("heatmap", hms, chms)):
+        equal = torch.equal(got.cpu(), ref)
+        print(f"int8 {name} maps (6 stages, {tuple(got.shape)}) card vs CPU "
+              f"int8 forward: bit_equal={equal} (CPU forward {cpu_s:.2f} s)")
+        if not equal:
+            raise AssertionError(f"int8 {name} maps: card != CPU")
+    for name, f, q in (("paf", fpafs[-1], pafs[-1]),
+                       ("heatmap", fhms[-1], hms[-1])):
+        rms, corr = _fidelity(f, q)
+        print(f"int8 vs f32 last-stage {name} maps: rms/max {rms!r}, "
+              f"corr {corr!r}")
+        if not corr >= 0.9:
+            raise AssertionError(f"int8 {name} maps do not track f32")
+    return counts, det, x
+
+
+def run_precise(f32_det, cfg, frames):
+    """Phase 6 on two frames; returns the launch counts over both precise
+    detectors and ``(f32 ms, int8 ms)`` per ``__call__``."""
+    import torch
+
+    from tpupose_torch.detectors.pose import PoseDetector
+    from tpupose_torch.utils.calibrate import calibrate_output_convs
+
+    frames = frames[:2]
+    orig_hw = frames.shape[1:3]
+    totals = {}
+    call_ms = []
+    weights = None
+    for quantized in (False, True):
+        label = "int8" if quantized else "f32"
+        t0 = time.perf_counter()
+        det = PoseDetector(cfg=cfg, device="cuda", seed=0, precise=True)
+        if weights is None:
+            # recalibrated at the postprocess's 480x640 resolution, where
+            # the fast path's gains would overfill the peak table
+            det.model.load_state_dict(f32_det.model.state_dict())
+            if not calibrate_output_convs(det, frames[0]):
+                raise AssertionError("calibration found no output convs")
+            weights = det.model.state_dict()
+        else:
+            det.model.load_state_dict(weights)
+        if quantized:
+            det.quantize([frames[0], frames[0][:, ::-1]])
+        det(frames[0])                               # warm-up
+        torch.cuda.synchronize()
+        print(f"precise {label}: init + calibration + warm-up "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        singles = [det(f) for f in frames]
+        batched = det.detect_batch(frames)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        shapes = _read_shapes()
+        grids = sorted({key[1:3] for key in shapes["conv7_s8"]})
+        blur_shapes = sorted(shapes["blur_nms"])
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        print(f"precise {label}: launches {counts}, conv7 grids {grids}, "
+              f"blur_nms shapes {blur_shapes}, poses per frame (__call__)="
+              f"{[len(p) for p, _ in singles]}, (detect_batch)="
+              f"{[len(p) for p, _ in batched]}, peak device memory "
+              f"{peak_mib:.1f} MiB")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        if (18, *orig_hw) not in shapes["blur_nms"]:
+            raise AssertionError(f"precise {label}: blur_nms did not run "
+                                 f"at (18, {orig_hw})")
+        if quantized and not set(PYRAMID_GRIDS) <= set(grids):
+            raise AssertionError(f"precise int8: conv7 ran at {grids}, not "
+                                 f"at every pyramid grid {PYRAMID_GRIDS}")
+        if quantized and counts["requant_epilogue"] < 30:
+            raise AssertionError("precise int8: requant did not run")
+        if sum(len(p) for p, _ in singles) < 1:
+            raise AssertionError(f"precise {label}: no pose found")
+
+        # B = 2 against B = 1: equal tables, and maps within a bound.  The
+        # int8 forward is exact at any batch, so its maps differ by the map
+        # resizes' float32 noise only; the f32 forward's cuDNN picks other
+        # algorithms by batch (9.1e-6 seen).
+        bound = 3e-4 if not quantized else 1e-5
+        paf_b, hm_b, _ = det._batch_maps(frames)
+        for i, (a, b) in enumerate(zip(singles, batched)):
+            (paf, hm), _ = det.compute_maps(frames[i])
+            errs = [(got - ref[i]).abs().max().item() / ref[i].abs().max()
+                    .item() for got, ref in ((paf, paf_b), (hm, hm_b))]
+            same = _same_tables(a, b, score_atol=1e-4)
+            print(f"precise {label} frame {i}: __call__ vs detect_batch "
+                  f"maps max_abs_err/max {errs}, tables equal {same}")
+            if not (max(errs) <= bound and same):
+                raise AssertionError(f"precise {label} frame {i}: "
+                                     f"__call__ != detect_batch")
+        check_path_shapes(f"precise {label} path", cfg, shapes)
+        if quantized:
+            _precise_int8_vs_cpu(det, frames[0])
+        call_ms.append(_host_ms(lambda: det(frames[0]), 3))
+    return totals, tuple(call_ms)
+
+
+def _precise_int8_vs_cpu(det, frame):
+    """Per pyramid scale, the card's int8 forward on the scale's canvas
+    against the CPU's int8 forward on the same tree and input: every
+    stage's maps bit-equal."""
+    import torch
+
+    from tpupose_torch import quant as tq
+    from tpupose_torch.detectors.pose import float32_numerics
+
+    cpu_apply = tq.make_quant_apply(
+        det.quant_static, tq.qtree_to_device(det.qtree, det.quant_static,
+                                             "cpu"))
+    img = torch.from_numpy(frame[None].copy()).cuda()
+    with torch.no_grad(), float32_numerics():
+        for scale, scaled_hw, padded_hw in det._pyramid_geometries(
+                *frame.shape[:2]):
+            x = det._scaled_on_canvas(img, scaled_hw, padded_hw) / 255.0 \
+                - 0.5
+            pafs, hms = det._quant_forward(x)
+            t0 = time.perf_counter()
+            cpafs, chms = cpu_apply(x.cpu())
+            cpu_s = time.perf_counter() - t0
+            equal = (torch.equal(pafs.cpu(), cpafs)
+                     and torch.equal(hms.cpu(), chms))
+            print(f"precise int8 scale {scale} ({tuple(x.shape[1:3])} "
+                  f"canvas, 6 stages of {tuple(pafs.shape[2:4])} maps): card "
+                  f"vs CPU int8 forward bit_equal={equal} (CPU forward "
+                  f"{cpu_s:.2f} s)")
+            if not equal:
+                raise AssertionError(f"precise int8 scale {scale}: card != "
+                                     f"CPU")
+
+
+def split_int8(qdet, x, frame, precise_ms, conv7_grids):
+    """Phase 7: the int8 forward by conv7 route against the f32 one, the
+    quantized fast path's ``__call__``, precise f32 vs int8, and conv7 vs
+    its plain version per pyramid grid, on one line."""
+    import torch
+
+    from tpupose_torch import quant as tq
+    from tpupose_torch.detectors.pose import float32_numerics
+
+    im2col = tq.make_quant_apply(
+        qdet.quant_static, tq.qtree_to_device(qdet.qtree, qdet.quant_static,
+                                              "cuda"), "im2col")
+    with torch.no_grad(), float32_numerics():
+        kernel_ms, im2col_ms = _alternating_ms(
+            lambda: qdet._quant_forward(x), lambda: im2col(x), iters=5)
+        f32_ms = _cuda_ms(lambda: qdet.model(x), 5)
+    split = {
+        "int8_forward_conv7_kernel_ms": kernel_ms,
+        "int8_forward_conv7_im2col_ms": im2col_ms,
+        "f32_forward_ms": f32_ms,
+        "int8_call_ms": _host_ms(lambda: qdet(frame), 5),
+        "precise_call_f32_ms": precise_ms[0],
+        "precise_call_int8_ms": precise_ms[1],
+    }
+    for (h, w), (k_ms, p_ms) in sorted(conv7_grids.items()):
+        split[f"conv7_{h}x{w}_kernel_ms"] = k_ms
+        split[f"conv7_{h}x{w}_plain_ms"] = p_ms
+    print(f"int8 split ({tuple(x.shape[1:3])} input, CUDA events except "
+          f"the __call__s on the host clock): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()}))
 
 
 def main() -> int:
@@ -254,6 +707,7 @@ def main() -> int:
         return 1
     try:
         from tpupose.config import INFERENCE
+        from tpupose_torch.ops import _cuda_build
         from tpupose_torch.ops import blur_nms as bn
     except ImportError as e:
         print(f"chip_smoke: run it from the repository root ({e})",
@@ -268,30 +722,49 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib = bn.build()
-    print(f"built {lib} in {time.perf_counter() - t0:.2f} s")
+    libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "requant"])
+    print(f"built {sorted(libs.values())} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # Relaxed subset filter (as tests/test_golden_parity.py) so random
     # weights form persons; sizes are the defaults, 368 in / 320 maps.
     cfg = dataclasses.replace(INFERENCE, max_subsets=128,
                               n_subset_limbs_thresh=2,
                               subset_score_thresh=0.05)
-    err, kernel_ms, plain_ms = check_kernel(bn, cfg)
+    blur_err, blur_ms, blur_plain_ms = check_kernel(bn, cfg)
     import numpy as np
 
     frames = np.random.RandomState(0).randint(
         0, 256, (3, 480, 640, 3)).astype(np.uint8)
-    launches = run_slice(bn, cfg, frames)
+    fast_launches, f32_det = run_slice(bn, cfg, frames)
+    int8_kernels, conv7_grids = check_int8_kernels()
+    quant_counts, qdet, x = run_quantized(f32_det, cfg, frames)
+    precise_counts, precise_ms = run_precise(f32_det, cfg, frames)
+    split_int8(qdet, x, frames[0], precise_ms, conv7_grids)
 
-    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "flax", "cv2")]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:4]}")
+    # launches: the sum over the driven paths, each counted from zero
+    launches = {name: quant_counts[name] + precise_counts[name]
+                for name in quant_counts}
+    launches["blur_nms"] += fast_launches
+    records = [
+        ("blur_nms", "tpupose_torch/csrc/blur_nms.cu",
+         "tpupose/ops/pallas/blur_nms.py:103",
+         (blur_err, blur_ms, blur_plain_ms)),
+        ("conv7_s8", "tpupose_torch/csrc/conv7_s8.cu",
+         "tpupose/ops/pallas/conv7.py:116", int8_kernels["conv7_s8"]),
+        ("requant_epilogue", "tpupose_torch/csrc/requant.cu",
+         "tpupose/ops/pallas/requant.py:74",
+         int8_kernels["requant_epilogue"]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "blur_nms", "route": "cuda",
-        "source": "tpupose_torch/csrc/blur_nms.cu",
-        "replaces": "tpupose/ops/pallas/blur_nms.py:103",
-        "launches": launches, "max_abs_err": err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        for name, source, replaces, (err, ms, plain_ms) in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

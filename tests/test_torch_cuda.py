@@ -5,9 +5,10 @@ a machine without JAX:
 
     python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
 
-The kernel must equal its plain PyTorch version bit for bit (it rounds every
-product and sum as PyTorch's eager ops do), and the detector on the card
-must find the pose table the CPU finds from the same weights.
+Each kernel must equal its plain PyTorch version bit for bit (it rounds
+every product and sum as PyTorch's eager ops do), the detector on the card
+must find the pose table the CPU finds from the same weights, and the card's
+int8 forward must equal the CPU's int8 forward bit for bit.
 """
 
 import numpy as np
@@ -17,6 +18,8 @@ import torch
 from tpupose.config import InferenceConfig
 from tpupose_torch.detectors.pose import PoseDetector
 from tpupose_torch.ops import blur_nms as bn
+from tpupose_torch.ops import conv7 as c7
+from tpupose_torch.ops import requant as rq
 from tpupose_torch.utils.calibrate import calibrate_output_convs
 
 pytestmark = pytest.mark.cuda
@@ -38,8 +41,8 @@ def _planted(rng, j, h, w):
     return hm
 
 
-@pytest.mark.parametrize("shape", [(18, 320, 432), (18, 46, 62), (3, 7, 9),
-                                   (18, 584, 584)])
+@pytest.mark.parametrize("shape", [(18, 320, 432), (18, 480, 640),
+                                   (18, 46, 62), (3, 7, 9), (18, 584, 584)])
 def test_blur_nms_kernel_matches_reference(cuda_device, shape):
     x = torch.from_numpy(_planted(np.random.RandomState(5), *shape)).to(
         cuda_device)
@@ -97,3 +100,119 @@ def test_cuda_detector_matches_cpu(cuda_device):
     assert on_card.valid.sum() >= 1
     poses, _ = card(frame)
     assert poses.shape[0] >= 1
+
+
+def _conv7_case(rng, b, h, w, channels, device):
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    parts = [put(rng.randint(0, 128, (b, h, w, c)).astype(np.int8))
+             for c in channels]
+    kernels = [put(rng.randint(-127, 128, (7, 7, c, 128)).astype(np.int8))
+               for c in channels]
+    mults = [put((np.abs(rng.randn(128)) * 1e-4 + 1e-5).astype(np.float32))
+             for _ in channels]
+    bias = put((rng.randn(128) * 0.01).astype(np.float32))
+    return parts, kernels, mults, bias
+
+
+@pytest.mark.parametrize("bhw, channels", [
+    *[((1, *hw), channels) for hw in ((23, 31), (46, 62), (69, 92), (92, 123))
+      for channels in ((38, 19, 128), (128,))],
+    ((2, 46, 62), (38, 19, 128)), ((3, 46, 62), (128,)), ((1, 5, 7), (128,))])
+def test_conv7_kernel_matches_reference(cuda_device, bhw, channels):
+    parts, kernels, mults, bias = _conv7_case(
+        np.random.RandomState(sum(bhw)), *bhw, channels, cuda_device)
+    before = c7.conv7_s8.launches
+    got = c7.conv7_s8(parts, kernels, mults, bias)
+    ref = c7.conv7_s8_reference(parts, kernels, mults, bias)
+    torch.cuda.synchronize()
+    assert c7.conv7_s8.launches == before + 1
+    assert torch.equal(got, ref)
+    cpu = c7.conv7_s8_reference([p.cpu() for p in parts],
+                                [k.cpu() for k in kernels],
+                                [m.cpu() for m in mults], bias.cpu())
+    assert torch.equal(ref.cpu(), cpu)
+    assert 0.2 < (cpu > 0).float().mean().item() < 0.8
+
+
+@pytest.mark.parametrize("shape, groups, relu, lo", [
+    ((1, 368, 496, 64), 1, True, 0.0), ((1, 184, 248, 64), 1, True, 0.0),
+    ((2, 736, 984, 64), 1, True, 0.0), ((1, 46, 62, 128), 1, True, 0.0),
+    ((1, 46, 62, 128), 3, False, -128.0)])
+def test_requant_kernel_matches_reference(cuda_device, shape, groups, relu,
+                                          lo):
+    rng = np.random.RandomState(groups)
+    accs = [torch.from_numpy(rng.randint(-2**20, 2**20, shape).astype(
+        np.int32)).to(cuda_device) for _ in range(groups)]
+    mults = [torch.from_numpy((np.abs(rng.randn(shape[-1])) * 1e-4).astype(
+        np.float32)).to(cuda_device) for _ in range(groups)]
+    bias = torch.from_numpy(rng.randn(shape[-1]).astype(np.float32)).to(
+        cuda_device)
+    before = rq.requant_epilogue.launches
+    got = rq.requant_epilogue(accs, mults, bias, relu, lo)
+    ref = rq.requant_epilogue_reference(accs, mults, bias, relu, lo)
+    torch.cuda.synchronize()
+    assert rq.requant_epilogue.launches == before + 1
+    assert torch.equal(got, ref)
+    assert got.min().item() == lo and got.max().item() == 127
+
+
+@pytest.mark.parametrize("m, k, n", [
+    (5, 27, 19), (16, 8, 8), (17, 27, 64), (40, 576, 38), (713, 64, 40),
+    (2852, 32, 128), (2852, 6272, 128), (524289, 27, 64)])
+def test_int_mm_padding_is_exact(cuda_device, m, k, n):
+    """``torch._int_mm`` on CUDA asks for K, N multiples of 8 and rejects
+    some shapes whose M is not a multiple of 32; the helper pads with zeros
+    and cuts the result back."""
+    rng = np.random.RandomState(m)
+    a = torch.from_numpy(rng.randint(-128, 128, (m, k)).astype(np.int8))
+    b = torch.from_numpy(rng.randint(-128, 128, (k, n)).astype(np.int8))
+    got = c7.int_mm(a.to(cuda_device), b.to(cuda_device)).cpu()
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got.double(), a.double() @ b.double())
+
+
+def test_int8_forward_on_the_card_equals_the_cpu(cuda_device):
+    """The whole int8 CocoPoseNet forward, kernel route on the card against
+    the plain route on the CPU, same tree: every stage's maps equal."""
+    from tpupose_torch import quant as tq
+
+    model = PoseDetector(device="cpu", seed=0).model
+    rng = np.random.RandomState(0)
+    frames = torch.from_numpy(rng.randint(0, 256, (2, 64, 80, 3)).astype(
+        np.float32)) / 255.0 - 0.5
+    ranges = tq.calibrate_ranges(model, frames)
+    qtree, static = tq.quantize("posenet", model, ranges)
+    card = tq.make_quant_apply(static, tq.qtree_to_device(
+        qtree, static, cuda_device, pack_conv7=True), "kernel")
+    host = tq.make_quant_apply(static, tq.qtree_to_device(qtree, static,
+                                                          "cpu"))
+    c7.conv7_s8.launches = rq.requant_epilogue.launches = 0
+    with torch.no_grad():
+        pafs, hms = card(frames.to(cuda_device))
+        torch.cuda.synchronize()
+        assert (c7.conv7_s8.launches, rq.requant_epilogue.launches) == (50,
+                                                                        30)
+        cpafs, chms = host(frames)
+    assert torch.equal(pafs.cpu(), cpafs)
+    assert torch.equal(hms.cpu(), chms)
+
+
+def test_quantized_precise_detector_on_the_card(cuda_device):
+    cfg = InferenceConfig(img_size=96, heatmap_size=88, max_subsets=128,
+                          n_subset_limbs_thresh=2, subset_score_thresh=0.05)
+    frame = np.random.RandomState(0).randint(0, 256, (96, 128, 3)).astype(
+        np.uint8)
+    det = PoseDetector(cfg=cfg, device=cuda_device, seed=0, precise=True)
+    assert calibrate_output_convs(det, frame)
+    det.quantize([frame, frame[:, ::-1]])
+    assert det.conv7_impl == "kernel"
+    c7.conv7_s8.shapes.clear()
+    poses, _ = det(frame)
+    batch = det.detect_batch(np.stack([frame, frame]))
+    assert len({key[1:3] for key in c7.conv7_s8.shapes}) == 4
+    for got, _ in batch:
+        assert got.shape == poses.shape
+    with pytest.raises(ValueError, match="already quantized"):
+        det.quantize([frame])

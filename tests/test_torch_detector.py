@@ -9,6 +9,7 @@ subset filter is relaxed as in ``tests/test_golden_parity.py``.  At
 the same pixels.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -135,12 +136,29 @@ def test_emit_result_warns_once_on_saturation():
         emit_result(result, 1.0, 1.0, warned=True)
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseDetector(precise=True, device="cpu")
-    det = PoseDetector(device="cpu", cfg=CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        det.quantize([_frame()])
+def _host_pyramid_detector():
+    PoseDetector(precise=True, device="cpu",
+                 cfg=dataclasses.replace(CFG, device_pyramid=False))
+
+
+def _conv7_xla_quantize():
+    PoseDetector(device="cpu", cfg=CFG).quantize([_frame()],
+                                                 conv7_impl="xla")
+
+
+def _conv_nms_postprocess():
+    cfg = dataclasses.replace(CFG, nms_mode="conv")
+    postprocess_pose(torch.zeros(38, 8, 8), torch.zeros(19, 8, 8), 8, cfg)
+
+
+@pytest.mark.parametrize("run, error, match", [
+    (_host_pyramid_detector, NotImplementedError, "ROADMAP"),
+    (_conv7_xla_quantize, ValueError, "no int8 convolution"),
+    (_conv_nms_postprocess, ValueError, "ROADMAP"),
+], ids=["host_pyramid", "conv7_xla", "conv_nms"])
+def test_unported_modes_raise(run, error, match):
+    with pytest.raises(error, match=match):
+        run()
 
 
 def test_cuda_device_without_cuda_raises():

@@ -1,12 +1,23 @@
-"""PoseDetector, fast single-scale path (port of
-``tpupose/detectors/pose.py``).
+"""PoseDetector (port of ``tpupose/detectors/pose.py``): the fast single-scale
+path, the precise multi-scale pyramid, and the w8a8 int8 forward.
 
 ``detector(img) -> (poses, scores)`` with ``poses: (N, 18, 3)`` rows of
-``(x, y, 2)`` in original image pixels.  Per frame: a host resize of the
-uint8 frame (numpy emulation of cv2's INTER_LINEAR, so no cv2 is needed),
-``/255 - 0.5``, CocoPoseNet, an align-corners resize of the last stage's
-maps, then the whole postprocess on the detector's device, and one
-device-to-host copy of the result.
+``(x, y, 2)`` in original image pixels.
+
+Fast path, per frame: a host resize of the uint8 frame (numpy emulation of
+cv2's INTER_LINEAR, so no cv2 is needed), ``/255 - 0.5``, CocoPoseNet, an
+align-corners resize of the last stage's maps, then the whole postprocess
+on the detector's device, and one device-to-host copy of the result.
+
+Precise path (``precise=True``, the device pyramid of the JAX package): the
+original frame is uploaded once; per scale of ``cfg.scales`` it is
+cubic-resized on the device (cv2's uint8 rounding emulated), placed on a
+stride-padded canvas of ``cfg.pad_value``, run through the network, and its
+last-stage maps are cubic-resized back to the postprocess resolution; the
+scales' maps are averaged and postprocessed there.
+
+``quantize()`` swaps the network forward for the int8 one of
+``tpupose_torch/quant.py``; everything around it stays.
 
 Numerics: convs run with cuDNN's TF32 off and matmuls at
 ``"highest"`` float32 precision; TF32 keeps ~3 decimal digits, enough to
@@ -16,6 +27,7 @@ move peak coordinates.
 from __future__ import annotations
 
 import contextlib
+import math
 import warnings
 from typing import List, Optional, Tuple
 
@@ -27,7 +39,9 @@ from tpupose.weights.chainer_npz import warn_on_load_report
 from tpupose_torch.models import ARCHS
 from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
-                                      resize_u8_linear)
+                                      resize_cv2_cubic, resize_u8_linear)
+from tpupose_torch.quant import (CONV7_IMPLS, calibrate_ranges,
+                                 make_quant_apply, qtree_to_device, quantize)
 from tpupose_torch.weights import load_chainer_npz, load_flax_params
 
 
@@ -107,7 +121,8 @@ def emit_result(result: PoseResult, scale_x: float, scale_y: float,
 
 class PoseDetector:
     """Multi-person pose detector; the whole per-frame pipeline after the
-    host resize runs on ``device``."""
+    host resize (fast path) or the upload (precise path) runs on
+    ``device``."""
 
     def __init__(self, arch: str = "posenet",
                  weights_file: Optional[str] = None,
@@ -119,15 +134,17 @@ class PoseDetector:
         """``params``: a Flax param tree (numpy leaves) to load;
         ``weights_file``: a Chainer ``.npz``; otherwise the model keeps its
         weights drawn from ``seed``."""
-        if precise:
+        if precise and not cfg.device_pyramid:
             raise NotImplementedError(
-                "precise (multi-scale) mode is not ported yet (ROADMAP.md, "
-                "Queue 1 item 9)")
+                "the host pyramid (cfg.device_pyramid=False, a host emulation "
+                "of cv2's uint8 INTER_CUBIC) is not ported yet (ROADMAP.md, "
+                "Queue 1 item 22)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"PoseDetector(device={device!r}): CUDA is not available")
         self.arch = arch
+        self.precise = precise
         self.cfg = cfg
         self.model = ARCHS[arch](seed=seed)
         if params is not None:
@@ -136,12 +153,77 @@ class PoseDetector:
             report = load_chainer_npz(self.model, weights_file)
             warn_on_load_report(report, weights_file, arch=arch)
         self.model = self.model.to(self.device).eval()
+        # set by quantize()
+        self.quantized = False
+        self.qtree = None
+        self.quant_static = None
+        self.conv7_impl = None
+        self._quant_forward = None
+        self._quant_min_side = 0
         self._warned_saturation = False
 
-    def quantize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "w8a8 quantization is not ported yet (ROADMAP.md, Queue 1 "
-            "item 10)")
+    def quantize(self, calib_images, size: Optional[int] = None,
+                 min_side: Optional[int] = None,
+                 conv7_impl: Optional[str] = None) -> None:
+        """Switch this detector to post-training w8a8 int8 inference.
+
+        ``calib_images``: a few serving-representative HWC uint8 frames,
+        each resized to ``size x size`` (default ``cfg.img_size``); the
+        activation ranges are taken over them (``tpupose_torch/quant.py``).
+        Postprocess, geometry and APIs are unchanged.
+
+        ``conv7_impl``: the route of the 7x7 int8 layers, bit-equal either
+        way: ``"kernel"``, the fused CUDA kernel ``ops/conv7.py`` (CUDA
+        detectors only); ``"im2col"``, im2col + ``torch._int_mm`` as every
+        other layer.  Default: ``"kernel"`` on CUDA, ``"im2col"`` on the
+        CPU.
+
+        ``min_side``: mixed precision; forwards whose network input's short
+        side is below it keep the float32 model.  Default 0: every forward
+        is int8 (``cfg.quant_min_side`` is a TPU measurement and is not
+        read)."""
+        if self.quantized:
+            raise ValueError("detector is already quantized")
+        if conv7_impl is None:
+            conv7_impl = "kernel" if self.device.type == "cuda" else "im2col"
+        if conv7_impl == "xla":
+            raise ValueError(
+                "conv7_impl='xla' has no counterpart in the port: PyTorch "
+                "has no int8 convolution; use 'kernel' or 'im2col'")
+        if conv7_impl not in CONV7_IMPLS:
+            raise ValueError(f"unknown conv7_impl {conv7_impl!r}")
+        if conv7_impl == "kernel" and self.device.type != "cuda":
+            raise ValueError("conv7_impl='kernel' launches a CUDA kernel; "
+                             f"this detector runs on {self.device}")
+        size = size or self.cfg.img_size
+        frames = np.stack([resize_u8_linear(np.asarray(img), (size, size))
+                           for img in calib_images])
+        with float32_numerics():
+            ranges = calibrate_ranges(self.model, preprocess_u8(
+                torch.from_numpy(frames).to(self.device)))
+        self.qtree, self.quant_static = quantize(self.arch, self.model,
+                                                 ranges)
+        self._quant_forward = make_quant_apply(
+            self.quant_static,
+            qtree_to_device(self.qtree, self.quant_static, self.device,
+                            pack_conv7=conv7_impl == "kernel"),
+            conv7_impl)
+        self.quantized = True
+        self.conv7_impl = conv7_impl
+        self._quant_min_side = min_side or 0
+
+    def _forward(self, x: torch.Tensor):
+        """Network forward on normalized (B, H, W, 3) frames: the int8 one
+        once quantized (unless the short side is below ``min_side``), else
+        the float32 model."""
+        if (self._quant_forward is not None
+                and min(x.shape[1], x.shape[2]) >= self._quant_min_side):
+            return self._quant_forward(x)
+        return self.model(x)
+
+    # ------------------------------------------------------------------
+    # fast single-scale path
+    # ------------------------------------------------------------------
 
     def _geometry(self, orig_h: int, orig_w: int):
         input_w, input_h = compute_optimal_size(
@@ -155,32 +237,172 @@ class PoseDetector:
         (B, 38, h, w) PAFs and (B, 19, h, w) heatmaps at ``map_hw``."""
         with float32_numerics(), torch.no_grad():
             x = preprocess_u8(torch.from_numpy(imgs_u8).to(self.device))
-            pafs, heatmaps = self.model(x)
+            pafs, heatmaps = self._forward(x)
             paf = resize_chainer(pafs[-1], map_hw)      # (B, h, w, 38)
             hm = resize_chainer(heatmaps[-1], map_hw)   # (B, h, w, 19)
         return paf.permute(0, 3, 1, 2), hm.permute(0, 3, 1, 2)
 
-    def _postprocess(self, paf: torch.Tensor, hm: torch.Tensor,
-                     map_w: int) -> PoseResult:
+    # ------------------------------------------------------------------
+    # precise multi-scale path (device pyramid)
+    # ------------------------------------------------------------------
+
+    def _postprocess_hw(self, orig_h: int, orig_w: int) -> Tuple[int, int]:
+        """Precise-mode postprocess resolution: the original one, or capped
+        by ``cfg.max_postprocess_len``; poses rescale back at emit."""
+        cap = self.cfg.max_postprocess_len
+        if cap and max(orig_h, orig_w) > cap:
+            s = cap / max(orig_h, orig_w)
+            return (max(1, round(orig_h * s)), max(1, round(orig_w * s)))
+        return (orig_h, orig_w)
+
+    def _pyramid_geometries(self, orig_h: int, orig_w: int):
+        """Per-scale (scale, scaled_hw, padded_hw) of the precise pyramid."""
+        out = []
+        for scale in self.cfg.scales:
+            multiplier = scale * self.cfg.img_size / min(orig_h, orig_w)
+            scaled_hw = (math.ceil(orig_h * multiplier),
+                         math.ceil(orig_w * multiplier))
+            padded_hw = (
+                scaled_hw[0] + (-scaled_hw[0]) % self.cfg.downscale,
+                scaled_hw[1] + (-scaled_hw[1]) % self.cfg.downscale)
+            out.append((scale, scaled_hw, padded_hw))
+        return out
+
+    def _scaled_on_canvas(self, imgs_u8: torch.Tensor, scaled_hw,
+                          canvas_hw) -> torch.Tensor:
+        """(B, H, W, 3) uint8 original frames -> (B, c_h, c_w, 3) float32:
+        cubic-resized to ``scaled_hw`` with cv2's uint8 rounding emulated,
+        top-left on a ``canvas_hw`` canvas of ``cfg.pad_value``."""
+        s_h, s_w = scaled_hw
+        # Frame by frame, so the matmuls have one shape whatever the batch
+        # and __call__ and detect_batch round every pixel alike: the int8
+        # forward turns a pixel moved by one into visibly different maps.
+        img = torch.stack([resize_cv2_cubic(f.float(), scaled_hw)
+                           for f in imgs_u8])
+        img = torch.clamp(torch.round(img), 0.0, 255.0)
+        pad = torch.tensor(self.cfg.pad_value, dtype=torch.float32,
+                           device=img.device)
+        canvas = pad.expand(img.shape[0], *canvas_hw, 3).clone()
+        canvas[:, :s_h, :s_w] = img
+        return canvas
+
+    def _scale_tail(self, paf, hm, padded_hw, crop_hw, post_hw):
+        """Last-stage maps -> postprocess-resolution maps: cubic to the
+        padded input size, crop the stride pad, cubic to ``post_hw``.
+        Channel-last, batched."""
+        out = []
+        for m in (paf, hm):
+            m = resize_cv2_cubic(m, padded_hw)[:, :crop_hw[0], :crop_hw[1]]
+            out.append(resize_cv2_cubic(m, post_hw))
+        return tuple(out)
+
+    def _pyramid_scale_maps(self, imgs_u8, scaled_hw, padded_hw, post_hw):
+        """One pyramid scale: original uint8 frames -> its maps at
+        ``post_hw``."""
+        x = self._scaled_on_canvas(imgs_u8, scaled_hw, padded_hw) / 255.0 \
+            - 0.5
+        pafs, heatmaps = self._forward(x)
+        return self._scale_tail(pafs[-1], heatmaps[-1], padded_hw,
+                                scaled_hw, post_hw)
+
+    def _fused_pyramid_maps(self, imgs_u8, geom_small, geom_large,
+                            post_hw):
+        """Two pyramid scales through one forward
+        (``cfg.fuse_small_scales``): both scaled frames on the larger
+        scale's padded canvas as a 2B batch.  Geoms are (scaled_hw,
+        padded_hw).  The smaller scale sees ``pad_value`` beyond its own
+        stride pad, so its maps near the image border differ slightly from
+        the separate-dispatch pyramid."""
+        (s_small, _), (s_large, p_large) = geom_small, geom_large
+        b = imgs_u8.shape[0]
+        x = torch.cat(
+            [self._scaled_on_canvas(imgs_u8, s_small, p_large),
+             self._scaled_on_canvas(imgs_u8, s_large, p_large)]) / 255.0 \
+            - 0.5
+        pafs, heatmaps = self._forward(x)
+        paf, hm = pafs[-1], heatmaps[-1]
+        small = self._scale_tail(paf[:b], hm[:b], p_large, s_small, post_hw)
+        large = self._scale_tail(paf[b:], hm[b:], p_large, s_large, post_hw)
+        return small, large
+
+    def _fused_small_pair(self, geoms):
+        """Indices (small, large) of the two smallest pyramid scales when
+        ``cfg.fuse_small_scales`` applies to this geometry, else None."""
+        if not (self.cfg.fuse_small_scales and len(geoms) >= 2):
+            return None
+        order = sorted(range(len(geoms)),
+                       key=lambda k: geoms[k][2][0] * geoms[k][2][1])
+        i, j = order[0], order[1]
+        # the larger canvas must contain the smaller scaled frame
+        if (geoms[i][1][0] <= geoms[j][2][0]
+                and geoms[i][1][1] <= geoms[j][2][1]):
+            return i, j
+        return None
+
+    def _precise_maps(self, imgs: np.ndarray):
+        """(B, H, W, 3) uint8 original frames -> the scales' averaged
+        channel-first (B, 38, o_h, o_w) PAFs and (B, 19, o_h, o_w) heatmaps
+        at the postprocess resolution ``(o_h, o_w)``."""
+        orig_h, orig_w = imgs.shape[1:3]
+        post_hw = self._postprocess_hw(orig_h, orig_w)
+        geoms = self._pyramid_geometries(orig_h, orig_w)
+        with float32_numerics(), torch.no_grad():
+            imgs_u8 = torch.from_numpy(np.ascontiguousarray(imgs)).to(
+                self.device)
+            fused = {}
+            pair = self._fused_small_pair(geoms)
+            if pair is not None:
+                i, j = pair
+                fused[i], fused[j] = self._fused_pyramid_maps(
+                    imgs_u8, geoms[i][1:], geoms[j][1:], post_hw)
+            paf_list, hm_list = [], []
+            for k, (_, scaled_hw, padded_hw) in enumerate(geoms):
+                paf, hm = fused[k] if k in fused else \
+                    self._pyramid_scale_maps(imgs_u8, scaled_hw, padded_hw,
+                                             post_hw)
+                paf_list.append(paf)
+                hm_list.append(hm)
+            n = len(geoms)
+            paf = sum(paf_list) / n
+            hm = sum(hm_list) / n
+        return paf.permute(0, 3, 1, 2), hm.permute(0, 3, 1, 2)
+
+    # ------------------------------------------------------------------
+    # entry points
+    # ------------------------------------------------------------------
+
+    def _batch_maps(self, imgs: np.ndarray):
+        """(B, H, W, 3) uint8 original frames -> the channel-first maps the
+        postprocess consumes and the map -> original scale factors."""
+        orig_h, orig_w = imgs.shape[1:3]
+        if self.precise:
+            paf, hm = self._precise_maps(imgs)
+        else:
+            (in_h, in_w), map_hw = self._geometry(orig_h, orig_w)
+            resized = np.stack([resize_u8_linear(img, (in_w, in_h))
+                                for img in imgs])
+            paf, hm = self._maps(resized, map_hw)
+        map_h, map_w = paf.shape[-2:]
+        return paf, hm, (orig_w / map_w, orig_h / map_h)
+
+    def _postprocess(self, paf: torch.Tensor, hm: torch.Tensor) -> PoseResult:
+        """``img_len`` is the map width: the fast path's map size, or the
+        precise path's postprocess resolution."""
         with torch.no_grad():
-            return postprocess_pose(paf, hm, map_w, self.cfg)
+            return postprocess_pose(paf, hm, paf.shape[-1], self.cfg)
 
     def compute_maps(self, orig_img: np.ndarray):
         """The (pafs (38, h, w), heatmaps (19, h, w)) maps the postprocess
         consumes for this frame, plus the map -> original scale factors."""
-        orig_h, orig_w = orig_img.shape[:2]
-        (in_h, in_w), (map_h, map_w) = self._geometry(orig_h, orig_w)
-        resized = resize_u8_linear(orig_img, (in_w, in_h))
-        paf, hm = self._maps(resized[None], (map_h, map_w))
-        return (paf[0], hm[0]), (orig_w / map_w, orig_h / map_h)
+        paf, hm, scale = self._batch_maps(np.asarray(orig_img)[None])
+        return (paf[0], hm[0]), scale
 
     def submit(self, orig_img: np.ndarray):
         """Run one frame up to its result on the device; returns a pending
         handle for ``collect``.  Kernels are queued asynchronously, except
         for the grouping fold's one read of its trip count."""
         (paf, hm), (scale_x, scale_y) = self.compute_maps(orig_img)
-        result = self._postprocess(paf, hm, paf.shape[-1])
-        return result, scale_x, scale_y
+        return self._postprocess(paf, hm), scale_x, scale_y
 
     def collect(self, pending):
         """Copy a ``submit`` handle's result to the host; (poses, scores)."""
@@ -190,18 +412,14 @@ class PoseDetector:
     def detect_batch(self, imgs: np.ndarray):
         """(B, H, W, 3) uint8 same-sized frames -> list of (poses, scores).
 
-        One upload and one batched forward; the postprocess runs per frame
-        on the device, and one device-to-host copy fetches every result."""
+        One upload and one batched forward (per pyramid scale in precise
+        mode); the postprocess runs per frame on the device, and one
+        device-to-host copy fetches every result."""
         imgs = np.asarray(imgs)
-        b, orig_h, orig_w = imgs.shape[:3]
-        (in_h, in_w), (map_h, map_w) = self._geometry(orig_h, orig_w)
-        resized = np.stack([resize_u8_linear(img, (in_w, in_h))
-                            for img in imgs])
-        paf, hm = self._maps(resized, (map_h, map_w))
-        results = results_to_host([
-            self._postprocess(paf[i], hm[i], map_w) for i in range(b)])
-        return [self._emit(r, orig_w / map_w, orig_h / map_h)
-                for r in results]
+        paf, hm, (scale_x, scale_y) = self._batch_maps(imgs)
+        results = results_to_host([self._postprocess(paf[i], hm[i])
+                                   for i in range(len(imgs))])
+        return [self._emit(r, scale_x, scale_y) for r in results]
 
     def _emit(self, result, scale_x: float, scale_y: float):
         poses, scores, self._warned_saturation = emit_result(

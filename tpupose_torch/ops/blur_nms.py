@@ -6,33 +6,22 @@ blur_nms_pallas``.  ``blur_nms`` routes by the device of its input only: a
 CPU tensor takes ``blur_nms_reference``; a CUDA tensor launches the kernel in
 ``tpupose_torch/csrc/blur_nms.cu`` or raises.  There is no fallback.
 
-The kernel is built with ``nvcc`` for ``sm_90a`` at its first launch, into
-``tpupose_torch/_build/`` under a name keyed by a hash of the source and the
-flags, and loaded with ``ctypes`` (a plain C entry point, no PyTorch
-headers, so the build takes seconds).
+The kernel is built at its first launch by ``ops/_cuda_build.py``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Tuple
 
 import torch
 
+from tpupose_torch.ops import _cuda_build
 from tpupose_torch.ops.gaussian import (gaussian_blur_reflect,
                                         scipy_gaussian_kernel_1d)
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "blur_nms.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 # Must equal BLUR_NMS_MAX_RADIUS in csrc/blur_nms.cu.
 MAX_RADIUS = 16
 
@@ -66,7 +55,8 @@ def blur_nms(heatmaps: torch.Tensor, sigma: float, thresh: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(J, H, W) float32 -> (smoothed float32, mask bool), the semantics of
     ``blur_nms_reference``.  CPU tensors run the plain version; CUDA tensors
-    run the kernel, which adds one to ``blur_nms.launches`` per launch."""
+    run the kernel, which adds one to ``blur_nms.launches`` per launch and
+    to ``blur_nms.shapes[(J, H, W)]``."""
     if heatmaps.device.type == "cpu":
         return blur_nms_reference(heatmaps, sigma, thresh)
     if heatmaps.device.type != "cuda":
@@ -92,46 +82,22 @@ def blur_nms(heatmaps: torch.Tensor, sigma: float, thresh: float
         err = lib.blur_nms_launch(
             heatmaps.data_ptr(), smoothed.data_ptr(), mask.data_ptr(),
             j, h, w, c_taps, radius, float(thresh), stream)
-    if err != 0:
-        raise RuntimeError(f"blur_nms kernel launch failed: CUDA error {err} "
-                           f"({lib.blur_nms_error_string(err).decode()})")
+    _cuda_build.check(lib, "blur_nms", err)
     blur_nms.launches += 1
+    blur_nms.shapes[(j, h, w)] += 1
     return smoothed, mask
 
 
 blur_nms.launches = 0
-
-
-def build() -> str:
-    """Compile ``csrc/blur_nms.cu`` unless the hashed library exists;
-    returns its path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"blur_nms-{digest.hexdigest()[:16]}.so")
-    if os.path.exists(path):
-        return path
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE], check=True)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+blur_nms.shapes = collections.Counter()
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build())
+    lib = _cuda_build.load("blur_nms")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.blur_nms_launch.argtypes = [p, p, p, i, i, i,
                                     ctypes.POINTER(ctypes.c_float), i,
                                     ctypes.c_float, p]
     lib.blur_nms_launch.restype = i
-    lib.blur_nms_error_string.argtypes = [i]
-    lib.blur_nms_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,222 @@
+"""int8 7x7 SAME convolution with the fused w8a8 epilogue: the CUDA kernel's
+wrapper, its plain PyTorch version, and the im2col int8 convolution they
+share.
+
+Replaces the Pallas TPU kernel ``tpupose/ops/pallas/conv7.py::conv7_s8``.
+``conv7_s8`` routes by the device of its inputs only: CPU tensors take
+``conv7_s8_reference`` (im2col, ``torch._int_mm``, the plain epilogue);
+CUDA tensors launch ``tpupose_torch/csrc/conv7_s8.cu`` or raise.  There is
+no grid-size cut: PyTorch has no int8 convolution on the card, so the
+kernel takes every 7x7 layer it is given.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from tpupose_torch.ops import _cuda_build
+from tpupose_torch.ops.requant import requant_epilogue_reference
+
+MAX_GROUPS = 4        # CONV7_MAX_GROUPS in csrc/conv7_s8.cu
+OUT_BLOCK = 64        # kOutBlock: output channels per block
+HALO_TILE_PIXELS = 10 * 14  # kInH * kInW: the haloed input tile
+MAX_SMEM_BYTES = 232448     # shared memory one Hopper block may use
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact, through
+    ``torch._int_mm``.  On CUDA it asks for K and N multiples of 8, and
+    cuBLASLt rejects some shapes whose M is not a multiple of 32 (M = 17 to
+    33, 713 or 2852 at K <= 64 and N >= 40; measured on an H100 with
+    PyTorch 2.11 / CUDA 12.8).  So M is padded to a multiple of 32 and K, N
+    to multiples of 8, with zeros, on every device, and the result cut back:
+    the integers are unchanged."""
+    m, k = a.shape
+    n = b.shape[1]
+    pad_m = _round_up(m, 32) - m
+    pad_k = _round_up(k, 8) - k
+    pad_n = _round_up(n, 8) - n
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        b = F.pad(b, (0, pad_n, 0, pad_k))
+    out = torch._int_mm(a.contiguous(), b.contiguous())
+    return out[:m, :n] if pad_m or pad_n else out
+
+
+def im2col_acc_s8(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """int8 k x k SAME convolution as one patch matmul: the k*k shifted
+    slices of the zero-padded input concatenated on channels, then one
+    (B*H*W, k*k*C) @ (k*k*C, O) int8 matmul into int32.
+
+    xq: (B, H, W, C) int8; kq: (k, k, C, O) int8 (HWIO) -> (B, H, W, O)
+    int32, bit-equal to an integer convolution."""
+    b, h, w, c = xq.shape
+    k, o = kq.shape[0], kq.shape[-1]
+    if k == 1:
+        patches = xq.reshape(b * h * w, c)
+    else:
+        r = k // 2
+        xp = F.pad(xq, (0, 0, r, r, r, r))
+        patches = torch.cat([xp[:, dy:dy + h, dx:dx + w, :]
+                             for dy in range(k) for dx in range(k)],
+                            dim=-1).reshape(b * h * w, k * k * c)
+    return int_mm(patches, kq.reshape(k * k * c, o)).reshape(b, h, w, o)
+
+
+def conv7_s8_reference(parts: Sequence[torch.Tensor],
+                       kernels_q: Sequence[torch.Tensor],
+                       mults: Sequence[torch.Tensor], bias: torch.Tensor,
+                       relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version: per group an im2col int32 accumulator, then
+    the plain epilogue (clip to [0, 127])."""
+    accs = [im2col_acc_s8(x, k) for x, k in zip(parts, kernels_q)]
+    return requant_epilogue_reference(accs, mults, bias, relu, lo=0.0)
+
+
+def pack_conv7_weights(kq: torch.Tensor) -> torch.Tensor:
+    """(7, 7, C, O) int8 HWIO -> the kernel's (49, C4, O) int32 words: word
+    k holds input channels 4k..4k+3 (little-endian bytes), C zero-padded to
+    a multiple of 16 so C4 is a multiple of 4.  Done once per layer, at
+    ``quantize()``."""
+    _, _, c, o = kq.shape
+    c_pad = _round_up(c, 16)
+    kp = kq.new_zeros((7, 7, c_pad, o))
+    kp[:, :, :c] = kq
+    kp = kp.reshape(49, c_pad // 4, 4, o).permute(0, 1, 3, 2).contiguous()
+    return kp.view(torch.int32).reshape(49, c_pad // 4, o)
+
+
+def smem_bytes(channels: Sequence[int]) -> int:
+    """Shared memory of one block for groups of these channel counts."""
+    return HALO_TILE_PIXELS * max(_round_up(c, 16) // 4 for c in channels) * 4
+
+
+def check_inputs(parts: Sequence[torch.Tensor],
+                 kernels_q: Sequence[torch.Tensor],
+                 mults: Sequence[torch.Tensor], bias: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the groups, kernels, mults and bias fit
+    one another: G int8 (B, H, W, C_g) groups on one device, G int8
+    (7, 7, C_g, O) kernels, G float32 (O,) mults and a float32 (O,) bias."""
+    g = len(parts)
+    if not (g >= 1 and len(kernels_q) == g and len(mults) == g):
+        raise ValueError(f"conv7_s8: {g} groups, {len(kernels_q)} kernels, "
+                         f"{len(mults)} mults")
+    b, h, w = parts[0].shape[:3]
+    o = kernels_q[0].shape[-1]
+    dev = parts[0].device
+    for x, k in zip(parts, kernels_q):
+        if (x.dtype != torch.int8 or x.dim() != 4
+                or tuple(x.shape[:3]) != (b, h, w) or x.device != dev):
+            raise ValueError(f"conv7_s8: groups must be int8 ({b}, {h}, {w}, "
+                             f"C) on {dev}, got {x.dtype} {tuple(x.shape)} "
+                             f"on {x.device}")
+        if (k.dtype != torch.int8 or tuple(k.shape) != (7, 7, x.shape[-1], o)
+                or k.device != dev):
+            raise ValueError(f"conv7_s8: kernel {k.dtype} {tuple(k.shape)} "
+                             f"does not fit a {tuple(x.shape)} group with "
+                             f"{o} outputs on {dev}")
+    for t in (*mults, bias):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (o,)
+                or t.device != dev):
+            raise ValueError(f"conv7_s8: mults and bias must be float32 "
+                             f"({o},) on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def check_kernel_limits(channels: Sequence[int], out_channels: int) -> None:
+    """Raise ``ValueError`` where the CUDA kernel cannot take a layer: more
+    than ``MAX_GROUPS`` groups, outputs not a multiple of ``OUT_BLOCK``, or
+    a haloed input tile beyond one block's shared memory."""
+    if len(channels) > MAX_GROUPS:
+        raise ValueError(f"conv7_s8: {len(channels)} groups; the kernel "
+                         f"takes 1 to {MAX_GROUPS}")
+    if out_channels % OUT_BLOCK:
+        raise ValueError(f"conv7_s8: {out_channels} output channels, not a "
+                         f"multiple of {OUT_BLOCK}")
+    smem = smem_bytes(channels)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"conv7_s8: {smem} bytes of shared memory for "
+                         f"channels {list(channels)} exceed {MAX_SMEM_BYTES}")
+
+
+def conv7_s8(parts: Sequence[torch.Tensor],
+             kernels_q: Sequence[torch.Tensor],
+             mults: Sequence[torch.Tensor], bias: torch.Tensor,
+             relu: bool = True,
+             packed: Optional[Sequence[torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """Fused int8 7x7 SAME conv + w8a8 requantize.
+
+    ``parts``: G input groups (B, H, W, C_g) int8 (the refine stages' concat
+    members; a 1-tuple elsewhere); ``kernels_q``: G of (7, 7, C_g, O) int8;
+    ``mults``: G of (O,) float32; ``bias``: (O,) float32.  Returns
+    (B, H, W, O) int8 equal to ``conv7_s8_reference``.  ``packed``: the
+    kernels already through ``pack_conv7_weights`` (packed here if None).
+
+    CPU tensors run the plain version; CUDA tensors run the kernel, which
+    adds one to ``conv7_s8.launches`` per launch and to
+    ``conv7_s8.shapes[(B, H, W, (C_0, ..., C_G-1))]``.  Inputs that do not
+    fit raise ``ValueError`` on every device."""
+    check_inputs(parts, kernels_q, mults, bias)
+    dev = parts[0].device
+    if dev.type == "cpu":
+        return conv7_s8_reference(parts, kernels_q, mults, bias, relu)
+    if dev.type != "cuda":
+        raise ValueError(f"conv7_s8: unsupported device {dev}")
+    b, h, w, _ = parts[0].shape
+    o = kernels_q[0].shape[-1]
+    channels = [x.shape[-1] for x in parts]
+    check_kernel_limits(channels, o)
+    if not all(x.is_contiguous() for x in parts):
+        raise ValueError("conv7_s8: the kernel takes contiguous groups")
+    if packed is None:
+        packed = [pack_conv7_weights(k) for k in kernels_q]
+    c4s = [_round_up(c, 16) // 4 for c in channels]
+    for p, c4 in zip(packed, c4s):
+        if (p.dtype != torch.int32 or tuple(p.shape) != (49, c4, o)
+                or p.device != dev or not p.is_contiguous()):
+            raise ValueError(f"conv7_s8: packed weights must be contiguous "
+                             f"int32 (49, {c4}, {o}) on {dev}")
+    g = len(parts)
+    mult = torch.stack(list(mults)).contiguous()
+    bias = bias.contiguous()
+    out = torch.empty((b, h, w, o), dtype=torch.int8, device=dev)
+    lib = _library()
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.conv7_s8_launch(
+            (vp * g)(*[x.data_ptr() for x in parts]),
+            (vp * g)(*[p.data_ptr() for p in packed]),
+            (ci * g)(*channels), (ci * g)(*c4s), g, mult.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, h, w, o, int(relu), stream)
+    _cuda_build.check(lib, "conv7_s8", err)
+    conv7_s8.launches += 1
+    conv7_s8.shapes[(b, h, w, tuple(channels))] += 1
+    return out
+
+
+conv7_s8.launches = 0
+conv7_s8.shapes = collections.Counter()
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = _cuda_build.load("conv7_s8")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.conv7_s8_launch.argtypes = [
+        ctypes.POINTER(p), ctypes.POINTER(p), ctypes.POINTER(i),
+        ctypes.POINTER(i), i, p, p, p, i, i, i, i, i, p]
+    lib.conv7_s8_launch.restype = i
+    return lib

@@ -140,12 +140,22 @@ def compute_connections(pafs: torch.Tensor, peaks: Peaks, img_len: float,
     num_limbs = len(limbs_a)
     hw = tuple(pafs.shape[-2:])
     paf_rows = pafs.reshape(num_limbs, 2, -1).transpose(1, 2)  # (L, HW, 2)
-    dev = pafs.device
+    return compute_connections_from_rows(paf_rows, hw, peaks, img_len, cfg,
+                                         limbs_a, limbs_b)
+
+
+def compute_connections_from_rows(paf_rows: torch.Tensor, hw, peaks: Peaks,
+                                  img_len: float, cfg: InferenceConfig,
+                                  limbs_a: np.ndarray,
+                                  limbs_b: np.ndarray) -> Connections:
+    """``compute_connections`` on PAF sample rows: paf_rows (L, H*W, 2),
+    limb-major (x, y) per pixel; hw: (H, W)."""
+    dev = paf_rows.device
     ia = torch.as_tensor(np.asarray(limbs_a), dtype=torch.long).to(dev)
     ib = torch.as_tensor(np.asarray(limbs_b), dtype=torch.long).to(dev)
     av, bv = peaks.valid[ia], peaks.valid[ib]
     score, valid = score_candidates(
-        paf_rows, hw, peaks.x[ia], peaks.y[ia], av,
+        paf_rows, tuple(hw), peaks.x[ia], peaks.y[ia], av,
         peaks.x[ib], peaks.y[ib], bv, img_len, cfg)
     a_slot, b_slot, score, valid = greedy_match(
         score, valid, av.sum(dim=1), bv.sum(dim=1))

@@ -14,7 +14,8 @@ import torch
 
 from tpupose.config import LIMBS_FROM, LIMBS_TO, InferenceConfig
 from tpupose_torch.ops.grouping import group_keypoints, subsets_to_poses
-from tpupose_torch.ops.paf import compute_connections
+from tpupose_torch.ops.paf import (compute_connections,
+                                   compute_connections_from_rows)
 from tpupose_torch.ops.peaks import find_peaks
 
 
@@ -38,13 +39,32 @@ class PoseResult(NamedTuple):
 def postprocess_pose(pafs: torch.Tensor, heatmaps: torch.Tensor,
                      img_len: float, cfg: InferenceConfig) -> PoseResult:
     """pafs: (38, H, W); heatmaps: (19, H, W), at postprocess resolution.
-    ``img_len`` is the map width (fast path), used by the PAF distance
-    prior."""
-    peaks = find_peaks(heatmaps[:-1], cfg.gaussian_sigma,
-                       cfg.heatmap_peak_thresh, cfg.max_peaks_per_joint,
-                       mode=cfg.nms_mode)
+    ``img_len`` is the map width, used by the PAF distance prior."""
+    peaks = _peaks(heatmaps, cfg)
     connections = compute_connections(pafs, peaks, float(img_len), cfg,
                                       LIMBS_FROM, LIMBS_TO)
+    return _finish(peaks, connections, cfg)
+
+
+def postprocess_pose_from_rows(paf_rows: torch.Tensor,
+                               heatmaps: torch.Tensor, hw, img_len: float,
+                               cfg: InferenceConfig) -> PoseResult:
+    """:func:`postprocess_pose` on PAF sample rows: paf_rows (L, H*W, 2),
+    limb-major (x, y) per pixel; heatmaps (19, H, W); hw (H, W).  The same
+    result, without the (38, H, W) -> rows transpose."""
+    peaks = _peaks(heatmaps, cfg)
+    connections = compute_connections_from_rows(
+        paf_rows, hw, peaks, float(img_len), cfg, LIMBS_FROM, LIMBS_TO)
+    return _finish(peaks, connections, cfg)
+
+
+def _peaks(heatmaps: torch.Tensor, cfg: InferenceConfig):
+    return find_peaks(heatmaps[:-1], cfg.gaussian_sigma,
+                      cfg.heatmap_peak_thresh, cfg.max_peaks_per_joint,
+                      mode=cfg.nms_mode)
+
+
+def _finish(peaks, connections, cfg: InferenceConfig) -> PoseResult:
     subsets = group_keypoints(connections, peaks, cfg)
     poses, person_valid = subsets_to_poses(subsets, peaks)
     return PoseResult(

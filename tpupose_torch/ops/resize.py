@@ -117,6 +117,12 @@ def resize_chainer(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return resize_hw(x, out_hw, "linear_align_corners")
 
 
+def resize_cv2_cubic(x: torch.Tensor, out_hw: Tuple[int, int]
+                     ) -> torch.Tensor:
+    """cv2 ``INTER_CUBIC`` parity (half-pixel Keys cubic, a=-0.75)."""
+    return resize_hw(x, out_hw, "cubic_half_pixel")
+
+
 def compute_optimal_size(img_h: int, img_w: int, target: int,
                          stride: int = 8) -> Tuple[int, int]:
     """Scale so the *short* side ~= target, long side rounded up to a stride
