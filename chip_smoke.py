@@ -7,7 +7,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Print the card (``nvidia-smi`` name and power limit) and build the three
    CUDA kernels from ``tpupose_torch/csrc/`` (``blur_nms.cu``,
-   ``conv7_s8.cu``, ``requant.cu``), one ``nvcc`` per source, in parallel.
+   ``conv7_s8.cu``, ``requant.cu``), one ``nvcc`` per source, in parallel,
+   beside ``nvcc -Xptxas -v`` on ``conv7_s8.cu`` (registers, shared memory
+   and spills of each of its kernels, printed).
 2. Hold the blur+NMS kernel against its plain PyTorch version on the card at
    the fast path's map shape (18, 320, 432), the precise path's
    (18, 480, 640), a planted-peak map (18, 46, 62), a map smaller than the
@@ -22,9 +24,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    that the card's maps agree with a CPU forward.
 4. Hold the int8 kernels against their plain versions, bit-equal: conv7 at
    the four pyramid grids, with Mconv1's three groups and 128 -> 128, at
-   batches of 2 and 3 and at a grid smaller than the window; requant at
-   conv1_2's shapes (fast path, pyramid scales 0.5 and 2.0 at B = 2) and a
-   refine stage's.  Time both with CUDA events.
+   batches of 2 and 3, at a grid that is a multiple of no tile and at a
+   grid smaller than the window, each at every block tile of the kernel;
+   requant at conv1_2's shapes (fast path, pyramid scales 0.5 and 2.0 at
+   B = 2) and a refine stage's.  Time conv7 per pyramid grid from CUDA-
+   graph replays, in turns with its plain version, ``torch._int_mm`` on
+   the prebuilt patch matrix (128 -> 128) and each of its tiles, beside
+   its bound from the shapes; requant with CUDA events.
 5. Drive the quantized fast path: ``quantize([f, f[:, ::-1]])`` of the
    calibrated detector, the three frames through ``__call__`` and
    ``detect_batch``.  Checks 50 conv7 and 30 requant launches per forward,
@@ -41,10 +47,12 @@ After each driven path (3, 5, 6), every kernel is held against its plain
 version, bit-equal, on seeded random inputs at every shape the path gave it
 (the wrappers' ``shapes`` counters).
 7. Print where the time goes: the fast path's split, the int8 forward with
-   the conv7 kernel against its im2col route, f32 against int8 precise
+   the conv7 kernel against its im2col route, conv7's summed device time
+   inside one int8 forward (``torch.profiler``), f32 against int8 precise
    ``__call__``, and conv7 against its plain version at each pyramid grid.
 
-The last two lines are the kernels' JSON record and the result line.
+The last two lines are the kernels' JSON record (each kernel's time, plain
+time, bound and launches on the driven paths) and the result line.
 """
 
 from __future__ import annotations
@@ -71,6 +79,33 @@ def _cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of ``fn`` replayed from a CUDA
+    graph of ``iters`` calls (5 replays, CUDA events): the device's time
+    without the gaps the host's Python leaves between eager launches."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
 
 
 def _host_ms(fn, iters: int) -> float:
@@ -161,7 +196,7 @@ def run_slice(bn, cfg, frames):
     from tpupose_torch.ops.postprocess import postprocess_pose
     from tpupose_torch.ops.resize import resize_chainer, resize_u8_linear
     from tpupose_torch.utils.calibrate import calibrate_output_convs
-    from tpupose.config import LIMBS_FROM, LIMBS_TO
+    from tpupose_torch.config import LIMBS_FROM, LIMBS_TO
 
     t0 = time.perf_counter()
     det = PoseDetector(cfg=cfg, device="cuda", seed=0)
@@ -272,16 +307,61 @@ def run_slice(bn, cfg, frames):
     return launches, det
 
 
-def _alternating_ms(kernel_fn, plain_fn, iters: int):
-    """Mean CUDA-event ms of ``kernel_fn`` and ``plain_fn``, timed in the
-    order plain, kernel, kernel, plain."""
-    import statistics as st
+def _round_robin_ms(fns, iters: int, timer=None):
+    """Mean ms of each of ``fns`` (a dict) by ``timer`` (``_cuda_ms`` if
+    None), timed in its order and then in reverse, so drift in the card's
+    clock falls on all."""
+    timer = timer or _cuda_ms
+    order = list(fns) + list(reversed(list(fns)))
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(timer(fns[name], iters))
+    return {name: statistics.mean(t) for name, t in times.items()}
 
-    times = {"kernel": [], "plain": []}
-    for order in ("plain", "kernel", "kernel", "plain"):
-        fn = kernel_fn if order == "kernel" else plain_fn
-        times[order].append(_cuda_ms(fn, iters))
-    return st.mean(times["kernel"]), st.mean(times["plain"])
+
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
+# HBM bytes/s, int8 tensor-core ops/s, float32 ops/s outside the tensor
+# cores.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+
+
+def _bound(n_bytes, ops, peak_ops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv7_bound(b, h, w, channels, o):
+    """conv7's bound: each input (activations, int8 weights, mults, bias)
+    read once and the int8 output written once; 2 int8 operations per
+    multiply-add of the real (unpadded) channels."""
+    c = sum(channels)
+    n_bytes = b * h * w * c + 49 * c * o + 4 * o * (len(channels) + 1) \
+        + b * h * w * o
+    return _bound(n_bytes, 2 * b * h * w * o * 49 * c, INT8_OPS_PER_S)
+
+
+def blur_nms_bound(j, h, w):
+    """blur_nms's bound: float32 maps in, float32 maps and an int8 mask
+    out; 21 multiply-adds in each of two passes and 5 comparisons per
+    pixel."""
+    n = j * h * w
+    return _bound(n * (4 + 4 + 1), n * (2 * 21 * 2 + 5), F32_OPS_PER_S)
+
+
+def requant_bound(shape, groups):
+    """requant's bound: G int32 accumulators, mults and bias in, int8 out;
+    per element and group a convert, a multiply and an add, then bias,
+    max, round and two clips."""
+    import math
+
+    n, o = math.prod(shape), shape[-1]
+    return _bound(n * (4 * groups + 1) + 4 * o * (groups + 1),
+                  n * (3 * groups + 5), F32_OPS_PER_S)
 
 
 def _conv7_case(rng, b, h, w, channels):
@@ -368,12 +448,30 @@ def _numel(requant_key):
     return math.prod(requant_key[0])
 
 
+def _patch_matrix(parts):
+    """The prebuilt im2col patch matrix of one group, padded as ``int_mm``
+    pads it (M to a multiple of 32, K to a multiple of 8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpupose_torch.ops import conv7 as c7
+
+    (x,) = parts
+    b, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 3, 3, 3, 3))
+    a = torch.cat([xp[:, dy:dy + h, dx:dx + w, :] for dy in range(7)
+                   for dx in range(7)], dim=-1).reshape(b * h * w, 49 * c)
+    m, k = a.shape
+    return F.pad(a, (0, c7._round_up(k, 8) - k, 0,
+                     c7._round_up(m, 32) - m)).contiguous()
+
+
 def check_int8_kernels():
     """Phase 4: conv7 and requant bit-equal to their plain versions.
-    Returns ``{name: (max_abs_err, ms, plain_ms)}`` at the representative
-    shapes (conv7 at (1, 46, 62) 128 -> 128, requant at conv1_2's
-    (1, 368, 496, 64)) and conv7's ``(kernel ms, plain ms)`` per pyramid
-    grid."""
+    Returns ``{name: (max_abs_err, ms, plain_ms, bound)}`` at the
+    representative shapes (conv7 at (1, 46, 62) 128 -> 128, requant at
+    conv1_2's (1, 368, 496, 64)) and, per pyramid grid, conv7's times at
+    128 -> 128: ``{"kernel", "plain", "int_mm", "bound"}`` in ms."""
     import numpy as np
     import torch
 
@@ -385,32 +483,55 @@ def check_int8_kernels():
     cases = [((1, *hw), channels) for hw in PYRAMID_GRIDS
              for channels in (MCONV1_CHANNELS, (128,))]
     cases += [((2, 46, 62), MCONV1_CHANNELS), ((3, 46, 62), (128,)),
-              ((1, 5, 7), (128,))]
+              ((1, 47, 61), MCONV1_CHANNELS), ((1, 5, 7), (128,))]
     for bhw, channels in cases:
         parts, kernels, mults, bias = _conv7_case(rng, *bhw, channels)
         packed = [c7.pack_conv7_weights(k) for k in kernels]
-        got = c7.conv7_s8(parts, kernels, mults, bias, packed=packed)
         ref = c7.conv7_s8_reference(parts, kernels, mults, bias)
-        torch.cuda.synchronize()
-        err = (got.int() - ref.int()).abs().max().item()
-        worst = max(worst, err)
-        print(f"conv7_s8 {bhw} groups {channels}: bit_equal="
-              f"{torch.equal(got, ref)} max_abs_err={err} "
+        tiles = {}
+        for tile, rows in enumerate(c7.TILE_ROWS):
+            got = c7.conv7_s8(parts, kernels, mults, bias, packed=packed,
+                              tile=tile)
+            torch.cuda.synchronize()
+            err = (got.int() - ref.int()).abs().max().item()
+            worst = max(worst, err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"conv7_s8 kernel disagrees at {bhw} "
+                                     f"{channels}, {rows}-row tile")
+            tiles[tile] = lambda tile=tile: c7.conv7_s8(
+                parts, kernels, mults, bias, packed=packed, tile=tile)
+        pick = c7.pick_tile(*bhw, 128)
+        print(f"conv7_s8 {bhw} groups {channels}: bit_equal=True at every "
+              f"tile of {list(c7.TILE_ROWS)} rows (picks "
+              f"{c7.TILE_ROWS[pick]}), "
               f"positive={float((ref > 0).float().mean()):.3f}")
-        if not torch.equal(got, ref):
-            raise AssertionError(f"conv7_s8 kernel disagrees at {bhw} "
-                                 f"{channels}")
-        if bhw[0] == 1 and bhw[1:] in PYRAMID_GRIDS:
-            times = _alternating_ms(
-                lambda: c7.conv7_s8(parts, kernels, mults, bias,
-                                    packed=packed),
-                lambda: c7.conv7_s8_reference(parts, kernels, mults, bias),
-                iters=20)
-            if channels == (128,):
-                per_grid[bhw[1:]] = times
-            print(f"conv7_s8 {bhw} groups {channels}: kernel {times[0]!r} "
-                  f"ms, plain {times[1]!r} ms (CUDA events, mean of 2x20)")
-    out["conv7_s8"] = (float(worst), *per_grid[(46, 62)])
+        if bhw[0] != 1 or bhw[1:] not in PYRAMID_GRIDS:
+            continue
+        bound, bound_by = conv7_bound(*bhw, channels, 128)
+        fns = {"plain": lambda: c7.conv7_s8_reference(parts, kernels,
+                                                      mults, bias),
+               "kernel": tiles[pick]}
+        if channels == (128,):
+            patches = _patch_matrix(parts)
+            wmat = kernels[0].reshape(49 * 128, 128).contiguous()
+            fns["int_mm"] = lambda: torch._int_mm(patches, wmat)
+        times = _round_robin_ms(fns, iters=20, timer=_graph_ms)
+        by_tile = _round_robin_ms(
+            {c7.TILE_ROWS[t]: fn for t, fn in tiles.items()}, iters=20,
+            timer=_graph_ms)
+        eager = _cuda_ms(tiles[pick], 20)
+        print(f"conv7_s8 {bhw} groups {channels}: "
+              + ", ".join(f"{k} {v!r} ms" for k, v in times.items())
+              + f", bound {bound!r} ms ({bound_by}); per tile of rows x "
+              f"16 columns x 32 channels: "
+              + ", ".join(f"{k} {v!r}" for k, v in by_tile.items())
+              + " ms (CUDA-graph replays of 20 calls, in turns); kernel "
+              f"launched eagerly {eager!r} ms (CUDA events, host-bound)")
+        if channels == (128,):
+            per_grid[bhw[1:]] = dict(times, bound=bound, eager=eager)
+            if bhw[1:] == (46, 62):
+                sample = (times["kernel"], times["plain"], (bound, bound_by))
+    out["conv7_s8"] = (float(worst), *sample)
 
     worst = 0
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -430,13 +551,17 @@ def check_int8_kernels():
         if not torch.equal(got, ref):
             raise AssertionError(f"requant kernel disagrees at {shape}")
         if shape == (1, 368, 496, 64):
-            times = _alternating_ms(
-                lambda: rq.requant_epilogue(accs, mults, bias, relu, lo),
-                lambda: rq.requant_epilogue_reference(accs, mults, bias,
-                                                      relu, lo), iters=50)
-            print(f"requant_epilogue {shape}: kernel {times[0]!r} ms, "
-                  f"plain {times[1]!r} ms (CUDA events, mean of 2x50)")
-    out["requant_epilogue"] = (float(worst), *times)
+            times = _round_robin_ms({
+                "plain": lambda: rq.requant_epilogue_reference(
+                    accs, mults, bias, relu, lo),
+                "kernel": lambda: rq.requant_epilogue(
+                    accs, mults, bias, relu, lo)}, iters=50)
+            bound = requant_bound(shape, groups)
+            print(f"requant_epilogue {shape}: kernel {times['kernel']!r} ms, "
+                  f"plain {times['plain']!r} ms, bound {bound[0]!r} ms "
+                  f"({bound[1]}) (CUDA events, mean of 2x50)")
+    out["requant_epilogue"] = (float(worst), times["kernel"],
+                               times["plain"], bound)
     return out, per_grid
 
 
@@ -666,10 +791,43 @@ def _precise_int8_vs_cpu(det, frame):
                                      f"CPU")
 
 
+def _conv7_in_forward(qdet, x, forwards: int = 3):
+    """conv7's summed device time and launches per int8 forward, and all
+    kernels' device time per forward, from ``torch.profiler``'s
+    ``key_averages``; fails if the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if getattr(e, name, 0):
+                return float(getattr(e, name))
+        return 0.0
+
+    qdet._quant_forward(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(forwards):
+            qdet._quant_forward(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    conv7 = [e for e in kernels if "conv7_s8_kernel" in e.key]
+    conv7_us = sum(dev_us(e) for e in conv7)
+    if not conv7_us > 0:
+        raise AssertionError("torch.profiler shows no device time for the "
+                             "conv7 kernel")
+    return (conv7_us / forwards / 1e3,
+            sum(e.count for e in conv7) / forwards,
+            sum(dev_us(e) for e in kernels) / forwards / 1e3)
+
+
 def split_int8(qdet, x, frame, precise_ms, conv7_grids):
-    """Phase 7: the int8 forward by conv7 route against the f32 one, the
-    quantized fast path's ``__call__``, precise f32 vs int8, and conv7 vs
-    its plain version per pyramid grid, on one line."""
+    """Phase 7: the int8 forward by conv7 route against the f32 one, conv7's
+    device time inside the int8 forward, the quantized fast path's
+    ``__call__``, precise f32 vs int8, and conv7 against its plain version
+    and ``torch._int_mm`` per pyramid grid, on one line."""
     import torch
 
     from tpupose_torch import quant as tq
@@ -678,24 +836,67 @@ def split_int8(qdet, x, frame, precise_ms, conv7_grids):
     im2col = tq.make_quant_apply(
         qdet.quant_static, tq.qtree_to_device(qdet.qtree, qdet.quant_static,
                                               "cuda"), "im2col")
+    # The host-clock and CUDA-event timings come before the profiler, which
+    # may leave per-launch cost behind.
+    call_ms = _host_ms(lambda: qdet(frame), 5)
     with torch.no_grad(), float32_numerics():
-        kernel_ms, im2col_ms = _alternating_ms(
-            lambda: qdet._quant_forward(x), lambda: im2col(x), iters=5)
+        forward_ms = _round_robin_ms({"im2col": lambda: im2col(x),
+                                      "kernel": lambda: qdet._quant_forward(
+                                          x)}, iters=5)
         f32_ms = _cuda_ms(lambda: qdet.model(x), 5)
+        conv7_ms, conv7_n, device_ms = _conv7_in_forward(qdet, x)
+    print(f"conv7 inside the int8 forward (torch.profiler, mean of 3 "
+          f"forwards): "
+          f"{conv7_ms!r} ms in {conv7_n!r} launches; all kernels "
+          f"{device_ms!r} ms")
     split = {
-        "int8_forward_conv7_kernel_ms": kernel_ms,
-        "int8_forward_conv7_im2col_ms": im2col_ms,
+        "int8_forward_conv7_kernel_ms": forward_ms["kernel"],
+        "int8_forward_conv7_im2col_ms": forward_ms["im2col"],
         "f32_forward_ms": f32_ms,
-        "int8_call_ms": _host_ms(lambda: qdet(frame), 5),
+        "conv7_in_int8_forward_ms": conv7_ms,
+        "int8_call_ms": call_ms,
         "precise_call_f32_ms": precise_ms[0],
         "precise_call_int8_ms": precise_ms[1],
     }
-    for (h, w), (k_ms, p_ms) in sorted(conv7_grids.items()):
-        split[f"conv7_{h}x{w}_kernel_ms"] = k_ms
-        split[f"conv7_{h}x{w}_plain_ms"] = p_ms
+    for (h, w), times in sorted(conv7_grids.items()):
+        for name, ms in times.items():
+            split[f"conv7_{h}x{w}_{name}_ms"] = ms
     print(f"int8 split ({tuple(x.shape[1:3])} input, CUDA events except "
           f"the __call__s on the host clock): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}))
+
+
+def _start_resource_report(name):
+    """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu`` (registers, shared
+    memory and spills of each kernel); returns (process, cubin path)."""
+    import os
+
+    from tpupose_torch.ops import _cuda_build
+
+    os.makedirs(_cuda_build.BUILD_DIR, exist_ok=True)
+    cubin = os.path.join(_cuda_build.BUILD_DIR, f"{name}-ptxas.cubin")
+    proc = subprocess.Popen(
+        [_cuda_build.nvcc(), *_cuda_build.ARCH_FLAGS, "-Xptxas", "-v",
+         "-cubin", "-o", cubin, _cuda_build.source(name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, cubin
+
+
+def _finish_resource_report(name, proc, cubin):
+    import os
+
+    try:
+        report, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if os.path.exists(cubin):
+            os.remove(cubin)
+    print(f"nvcc -Xptxas -v {name}.cu (exit {proc.returncode}):")
+    print(report.strip())
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v failed for {name}.cu")
 
 
 def main() -> int:
@@ -706,7 +907,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:
-        from tpupose.config import INFERENCE
+        from tpupose_torch.config import INFERENCE
         from tpupose_torch.ops import _cuda_build
         from tpupose_torch.ops import blur_nms as bn
     except ImportError as e:
@@ -722,9 +923,11 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    report = _start_resource_report("conv7_s8")
     libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "requant"])
     print(f"built {sorted(libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
+    _finish_resource_report("conv7_s8", *report)
 
     # Relaxed subset filter (as tests/test_golden_parity.py) so random
     # weights form persons; sizes are the defaults, 368 in / 320 maps.
@@ -743,7 +946,7 @@ def main() -> int:
     split_int8(qdet, x, frames[0], precise_ms, conv7_grids)
 
     leaked = [m for m in sys.modules
-              if m.split(".")[0] in ("jax", "flax", "cv2")]
+              if m.split(".")[0] in ("jax", "flax", "cv2", "tpupose")]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:4]}")
     # launches: the sum over the driven paths, each counted from zero
@@ -753,18 +956,23 @@ def main() -> int:
     records = [
         ("blur_nms", "tpupose_torch/csrc/blur_nms.cu",
          "tpupose/ops/pallas/blur_nms.py:103",
-         (blur_err, blur_ms, blur_plain_ms)),
+         (blur_err, blur_ms, blur_plain_ms, blur_nms_bound(18, 320, 432))),
         ("conv7_s8", "tpupose_torch/csrc/conv7_s8.cu",
          "tpupose/ops/pallas/conv7.py:116", int8_kernels["conv7_s8"]),
         ("requant_epilogue", "tpupose_torch/csrc/requant.cu",
          "tpupose/ops/pallas/requant.py:74",
          int8_kernels["requant_epilogue"]),
     ]
+    # No single PyTorch call computes any of the three functions, so
+    # library_ms is null; conv7's yardstick, torch._int_mm on the prebuilt
+    # patch matrix, is printed per grid in phase 4.
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, source, replaces, (err, ms, plain_ms) in records]}))
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        for name, source, replaces,
+        (err, ms, plain_ms, (bound_ms, bound_by)) in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,71 @@
+"""The port's own copies of the JAX package's schema, configuration and
+weight-file layer names (``tpupose_torch/config.py``,
+``tpupose_torch/weights.py``) against the originals, on the CPU."""
+
+import dataclasses
+import warnings
+
+import numpy as np
+import pytest
+from torch import nn
+
+import tpupose.config as jcfg
+from tpupose.weights import chainer_npz as jnpz
+from tpupose_torch import config as tcfg
+from tpupose_torch import weights as tw
+from tpupose_torch.models.posenet import CocoPoseNet
+
+
+def test_inference_config_equals_jax_field_by_field():
+    jfields = [f.name for f in dataclasses.fields(jcfg.InferenceConfig)]
+    tfields = [f.name for f in dataclasses.fields(tcfg.InferenceConfig)]
+    assert tfields == jfields
+    for name in jfields:
+        assert getattr(tcfg.INFERENCE, name) == getattr(jcfg.INFERENCE,
+                                                        name), name
+
+
+def test_skeleton_and_limbs_equal_jax():
+    assert tcfg.NUM_JOINTS == jcfg.NUM_JOINTS == 18
+    assert ({j.name: int(j) for j in tcfg.JointType}
+            == {j.name: int(j) for j in jcfg.JointType})
+    assert tcfg.LIMBS == jcfg.LIMBS
+    for name in ("LIMBS_FROM", "LIMBS_TO"):
+        got, ref = getattr(tcfg, name), getattr(jcfg, name)
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    assert tcfg.NON_SPAWNING_LIMBS == jcfg.NON_SPAWNING_LIMBS
+
+
+def _cocoposenet_layers():
+    model = CocoPoseNet(num_stages=6)
+    return [(name.split(".")[-2], name)
+            for name, m in model.named_modules() if isinstance(m, nn.Conv2d)]
+
+
+def test_layer_to_path_equals_jax_on_every_cocoposenet_layer():
+    layers = _cocoposenet_layers()
+    assert len(layers) == 92
+    for layer, module_name in layers:
+        got = tw.layer_to_path(layer)
+        assert got == jnpz.layer_to_path(layer), layer
+        assert f"{got[0]}.{got[1]}.conv" == module_name
+
+
+@pytest.mark.parametrize("report, warns", [
+    ({"missing": ["conv5_5_CPM_L1/W", "conv5_5_CPM_L1/b"], "unused": []},
+     False),
+    ({"missing": ["conv1_1/W"], "unused": []}, True),
+    ({"missing": [], "unused": ["extra/W"]}, True),
+], ids=["documented_omission", "missing", "unused"])
+def test_warn_on_load_report_warns_as_jax(report, warns):
+    assert tw.EXPECTED_MISSING == jnpz.EXPECTED_MISSING
+    for fn in (tw.warn_on_load_report, jnpz.warn_on_load_report):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn(report, "weights.npz")
+        assert len(seen) == int(warns)
+        if warns:
+            assert issubclass(seen[0].category, RuntimeWarning)
+            assert "does not fully match the posenet model" in str(
+                seen[0].message)

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpupose.config import InferenceConfig
+from tpupose_torch.config import InferenceConfig
 from tpupose_torch.detectors.pose import PoseDetector
 from tpupose_torch.ops import blur_nms as bn
 from tpupose_torch.ops import conv7 as c7
@@ -102,24 +102,29 @@ def test_cuda_detector_matches_cpu(cuda_device):
     assert poses.shape[0] >= 1
 
 
-def _conv7_case(rng, b, h, w, channels, device):
+def _conv7_case(rng, b, h, w, channels, device, o=128):
     def put(a):
         return torch.from_numpy(a).to(device)
 
     parts = [put(rng.randint(0, 128, (b, h, w, c)).astype(np.int8))
              for c in channels]
-    kernels = [put(rng.randint(-127, 128, (7, 7, c, 128)).astype(np.int8))
+    kernels = [put(rng.randint(-127, 128, (7, 7, c, o)).astype(np.int8))
                for c in channels]
-    mults = [put((np.abs(rng.randn(128)) * 1e-4 + 1e-5).astype(np.float32))
+    mults = [put((np.abs(rng.randn(o)) * 1e-4 + 1e-5).astype(np.float32))
              for _ in channels]
-    bias = put((rng.randn(128) * 0.01).astype(np.float32))
+    bias = put((rng.randn(o) * 0.01).astype(np.float32))
     return parts, kernels, mults, bias
 
 
+PYRAMID_GRIDS = ((23, 31), (46, 62), (69, 92), (92, 123))
+MCONV1 = (38, 19, 128)
+
+
 @pytest.mark.parametrize("bhw, channels", [
-    *[((1, *hw), channels) for hw in ((23, 31), (46, 62), (69, 92), (92, 123))
-      for channels in ((38, 19, 128), (128,))],
-    ((2, 46, 62), (38, 19, 128)), ((3, 46, 62), (128,)), ((1, 5, 7), (128,))])
+    *[((b, *hw), channels) for hw in PYRAMID_GRIDS
+      for channels in (MCONV1, (128,)) for b in (1, 2, 3)],
+    ((1, 47, 61), MCONV1), ((2, 47, 61), (128,)),   # ragged tiles
+    ((1, 5, 7), (128,)), ((3, 5, 7), MCONV1)])      # smaller than the window
 def test_conv7_kernel_matches_reference(cuda_device, bhw, channels):
     parts, kernels, mults, bias = _conv7_case(
         np.random.RandomState(sum(bhw)), *bhw, channels, cuda_device)
@@ -134,6 +139,41 @@ def test_conv7_kernel_matches_reference(cuda_device, bhw, channels):
                                 [m.cpu() for m in mults], bias.cpu())
     assert torch.equal(ref.cpu(), cpu)
     assert 0.2 < (cpu > 0).float().mean().item() < 0.8
+
+
+@pytest.mark.parametrize("tile", range(len(c7.TILE_ROWS)))
+@pytest.mark.parametrize("channels, o", [(MCONV1, 128), ((128,), 128),
+                                         ((128,), 64), ((40, 16), 32)])
+def test_conv7_kernel_every_tile_matches_reference(cuda_device, tile,
+                                                   channels, o):
+    """Each block tile of the kernel, also at O = 64 and 32 and with a group
+    of 16 channels (whole 16-byte chunks, zero-padded to 32), on a grid
+    that is a multiple of no tile; relu off."""
+    parts, kernels, mults, bias = _conv7_case(
+        np.random.RandomState(tile), 2, 19, 37, channels, cuda_device, o)
+    bias = bias - 0.3
+    got = c7.conv7_s8(parts, kernels, mults, bias, relu=False, tile=tile)
+    ref = c7.conv7_s8_reference(parts, kernels, mults, bias, relu=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_conv7_rejects_what_the_kernel_does_not_take(cuda_device):
+    parts, kernels, mults, bias = _conv7_case(
+        np.random.RandomState(0), 1, 8, 8, (128,), cuda_device)
+    buf = torch.zeros(parts[0].numel() + 1, dtype=torch.int8,
+                      device=cuda_device)
+    shifted = buf[1:].view(parts[0].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        c7.conv7_s8([shifted], kernels, mults, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        c7.conv7_s8([parts[0].transpose(1, 2)], kernels, mults, bias)
+    with pytest.raises(ValueError, match="tile"):
+        c7.conv7_s8(parts, kernels, mults, bias, tile=len(c7.TILE_ROWS))
+    with pytest.raises(ValueError, match="packed"):
+        c7.conv7_s8(parts, kernels, mults, bias,
+                    packed=[c7.pack_conv7_weights(kernels[0]).view(
+                        torch.int32)])
 
 
 @pytest.mark.parametrize("shape, groups, relu, lo", [

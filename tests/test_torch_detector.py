@@ -112,10 +112,13 @@ def test_detect_batch_equals_call(detectors):
 
 
 def test_import_leaves_out_jax_flax_and_cv2():
+    """The port's modules import nothing of JAX, Flax, cv2 or the JAX
+    package ``tpupose``, not even its jax-free modules."""
     code = ("import sys, tpupose_torch.detectors.pose, "
-            "tpupose_torch.utils.calibrate; "
-            "bad = [m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'flax', 'cv2')]; "
+            "tpupose_torch.utils.calibrate, tpupose_torch.quant, "
+            "tpupose_torch.weights; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'cv2', 'tpupose')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

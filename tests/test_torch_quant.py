@@ -26,9 +26,12 @@ from tpupose.config import InferenceConfig
 from tpupose_torch import quant as tq
 from tpupose_torch.detectors import pose as tpose
 from tpupose_torch.detectors.pose import PoseDetector
-from tpupose_torch.ops.conv7 import (check_inputs, check_kernel_limits,
+from tpupose_torch.ops.conv7 import (K_STEP, NUM_SMS, TAPS_PER_STEP,
+                                     TILE_N, TILE_ROWS, TILE_W, blocks,
+                                     check_inputs, check_kernel_limits,
                                      conv7_s8, conv7_s8_reference,
-                                     im2col_acc_s8, pack_conv7_weights)
+                                     im2col_acc_s8, pack_conv7_weights,
+                                     pick_tile, smem_bytes)
 from tpupose_torch.ops.requant import (requant_epilogue,
                                        requant_epilogue_reference)
 
@@ -242,17 +245,90 @@ def test_requant_reference_vs_jax_kernel(groups, relu, lo):
 
 
 def test_pack_conv7_weights_layout():
-    """Word (tap, k, o) of the kernel's layout holds input channels
-    4k..4k+3 of output o, little-endian, zero past C."""
+    """Row (tap, o) of the kernel's layout holds input channels 0..C-1 of
+    output o at tap dy * 7 + dx, K contiguous, zero up to a multiple of
+    32."""
     rng = np.random.RandomState(7)
     kq = rng.randint(-127, 128, (7, 7, 19, 64)).astype(np.int8)
     packed = pack_conv7_weights(torch.from_numpy(kq)).numpy()
-    assert packed.shape == (49, 8, 64) and packed.dtype == np.int32
-    unpacked = packed.view(np.int8).reshape(49, 8, 64, 4)
-    want = np.zeros((7, 7, 32, 64), np.int8)
-    want[:, :, :19] = kq
-    want = want.reshape(49, 8, 4, 64).transpose(0, 1, 3, 2)
-    np.testing.assert_array_equal(unpacked, want)
+    assert packed.shape == (49, 64, 32) and packed.dtype == np.int8
+    for dy, dx, o in ((0, 0, 0), (3, 5, 17), (6, 6, 63)):
+        np.testing.assert_array_equal(packed[dy * 7 + dx, o, :19],
+                                      kq[dy, dx, :, o])
+    assert not packed[:, :, 19:].any()
+    want = kq.reshape(49, 19, 64).transpose(0, 2, 1)
+    np.testing.assert_array_equal(packed[:, :, :19], want)
+    assert pack_conv7_weights(torch.zeros(7, 7, 128, 128,
+                                          dtype=torch.int8)).shape == (
+        49, 128, 128)
+
+
+def _emulate_kernel_acc(x, packed, tile):
+    """numpy emulation of the CUDA kernel's K loop for one group: per block
+    tile of ``TILE_ROWS[tile]`` x ``TILE_W`` pixels and ``TILE_N`` channels,
+    the haloed input tile (zero outside the image and past C, channels
+    padded to C_pad); per step of ``TAPS_PER_STEP`` taps, warp kw takes tap
+    ``TAPS_PER_STEP * step + kw``: the tile shifted by (dy, dx), one k32
+    step at a time, @ packed[tap]^T into its own partial sum; the partials
+    are then added, and pixels outside the image dropped."""
+    b, h, w, c = x.shape
+    o, cp = packed.shape[1:]
+    rows = TILE_ROWS[tile]
+    tiles_h, tiles_w = -(-h // rows), -(-w // TILE_W)
+    xp = np.zeros((b, tiles_h * rows + 6, tiles_w * TILE_W + 6, cp),
+                  np.int64)
+    xp[:, 3:3 + h, 3:3 + w, :c] = x
+    acc = np.zeros((b, tiles_h * rows, tiles_w * TILE_W, o), np.int64)
+    for ty in range(tiles_h):
+        for tx in range(tiles_w):
+            y0, x0 = ty * rows, tx * TILE_W
+            halo = xp[:, y0:y0 + rows + 6, x0:x0 + TILE_W + 6]
+            for n0 in range(0, o, TILE_N):
+                partial = np.zeros((TAPS_PER_STEP, b, rows, TILE_W, TILE_N),
+                                   np.int64)
+                for step in range(-(-49 // TAPS_PER_STEP)):
+                    for kw in range(TAPS_PER_STEP):
+                        tap = step * TAPS_PER_STEP + kw
+                        if tap >= 49:
+                            continue
+                        dy, dx = divmod(tap, 7)
+                        a = halo[:, dy:dy + rows, dx:dx + TILE_W]
+                        wt = packed[tap, n0:n0 + TILE_N].astype(np.int64)
+                        for kb in range(0, cp, K_STEP):
+                            partial[kw] += (a[..., kb:kb + K_STEP]
+                                            @ wt[:, kb:kb + K_STEP].T)
+                acc[:, y0:y0 + rows, x0:x0 + TILE_W,
+                    n0:n0 + TILE_N] = partial.sum(0)
+    return acc[:, :h, :w]
+
+
+@pytest.mark.parametrize("b, h, w, channels, tile", [
+    (1, 9, 13, (38, 19, 128), 0),   # Mconv1's groups, a ragged 4x16 tile
+    (1, 9, 13, (38, 19, 128), 1),
+    (2, 5, 4, (38, 19, 128), 0),    # a grid smaller than the window
+    (1, 3, 2, (128,), 1),
+], ids=["mconv1_4x16", "mconv1_8x16", "small_batched", "tiny"])
+def test_kernel_k_loop_emulation_equals_im2col(b, h, w, channels, tile):
+    rng = np.random.RandomState(h * w + tile)
+    for c in channels:
+        x = rng.randint(-128, 128, (b, h, w, c)).astype(np.int8)
+        kq = rng.randint(-127, 128, (7, 7, c, 64)).astype(np.int8)
+        packed = pack_conv7_weights(torch.from_numpy(kq)).numpy()
+        got = _emulate_kernel_acc(x, packed, tile)
+        ref = im2col_acc_s8(torch.from_numpy(x), torch.from_numpy(kq))
+        np.testing.assert_array_equal(got, ref.numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("b, h, w, o, rows", [
+    (1, 23, 31, 128, 4), (1, 46, 62, 128, 8), (1, 69, 92, 128, 8),
+    (1, 92, 123, 128, 8), (2, 23, 31, 128, 4), (2, 46, 62, 128, 8),
+    (1, 5, 7, 64, 4)])
+def test_pick_tile_takes_8_rows_from_half_a_wave(b, h, w, o, rows):
+    tile = pick_tile(b, h, w, o)
+    assert TILE_ROWS[tile] == rows
+    assert (blocks(b, h, w, o, TILE_ROWS.index(8)) >= NUM_SMS // 2) == (
+        rows == 8)
+    assert smem_bytes((38, 19, 128), tile) <= smem_bytes((38, 19, 128))
 
 
 def _bad_conv7_inputs(case):
@@ -280,10 +356,20 @@ def test_conv7_rejects_inputs_that_do_not_fit(case):
 
 def test_conv7_kernel_limits():
     check_kernel_limits((38, 19, 128), 128)
+    check_kernel_limits((128,), 96)
+    check_kernel_limits((288,), 64)          # the widest C that fits
+    # the largest tile: (8 + 6) x 22 pixels at a stride of C_pad + 16
+    # bytes, then the int32 partial sums of 4 x 4 warps, which outgrow the
+    # ring of 3 x 4 x 32 weight rows
+    assert smem_bytes((38, 19, 128)) == 14 * 22 * 144 + 4 * 4 * 32 * 32 * 4
+    assert smem_bytes((38, 19), 0) == 10 * 22 * 80 + 4 * 2 * 32 * 32 * 4
+    assert smem_bytes((128,), 0) == (10 * 22 + 3 * 4 * 32) * 144
+    with pytest.raises(ValueError, match="shared memory"):
+        check_kernel_limits((38, 320), 128)
     with pytest.raises(ValueError, match="shared memory"):
         check_kernel_limits((38, 8192), 128)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        check_kernel_limits((128,), 96)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        check_kernel_limits((128,), 48)
     with pytest.raises(ValueError, match="groups"):
         check_kernel_limits((8,) * 5, 128)
 

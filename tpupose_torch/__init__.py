@@ -2,9 +2,10 @@
 
 The JAX package ``tpupose`` stays the reference; this package mirrors its
 module names (``models``, ``ops``, ``detectors``, ``utils``, ``quant``) and
-is checked against it by ``tests/test_torch_*.py``.  It imports ``torch`` and never
-``jax``: the only ``tpupose`` modules it reads are the numpy-only
-``tpupose.config`` and ``tpupose.weights.chainer_npz``.
+is checked against it by ``tests/test_torch_*.py``.  It imports ``torch``
+and nothing of ``jax`` or of ``tpupose``: what it shares with the JAX
+package (the pose schema, ``InferenceConfig``, the weight files' layer
+names) it keeps as its own copy in ``config.py`` and ``weights.py``.
 
 Hand-written Hopper kernels live in ``csrc/`` and are built with ``nvcc`` at
 first use (see ``tpupose_torch/ops/_cuda_build.py``).

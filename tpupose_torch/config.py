@@ -1,0 +1,114 @@
+"""The pose schema and inference configuration of the port.
+
+The port's own copy of what it uses from ``tpupose/config.py``: the
+18-joint skeleton, the 19-limb PAF topology and ``InferenceConfig``, with
+the same values, so the port imports nothing of the JAX package.
+``tests/test_torch_config.py`` holds the two copies equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Tuple
+
+import numpy as np
+
+
+class JointType(enum.IntEnum):
+    """The 18 joints of the pose network's skeleton."""
+
+    Nose = 0
+    Neck = 1
+    RightShoulder = 2
+    RightElbow = 3
+    RightHand = 4
+    LeftShoulder = 5
+    LeftElbow = 6
+    LeftHand = 7
+    RightWaist = 8
+    RightKnee = 9
+    RightFoot = 10
+    LeftWaist = 11
+    LeftKnee = 12
+    LeftFoot = 13
+    RightEye = 14
+    LeftEye = 15
+    RightEar = 16
+    LeftEar = 17
+
+
+NUM_JOINTS = len(JointType)  # 18
+
+# 19 limbs connecting joint pairs; PAF channels 2*i and 2*i+1 encode limb i.
+LIMBS: Tuple[Tuple[int, int], ...] = (
+    (JointType.Neck, JointType.RightWaist),
+    (JointType.RightWaist, JointType.RightKnee),
+    (JointType.RightKnee, JointType.RightFoot),
+    (JointType.Neck, JointType.LeftWaist),
+    (JointType.LeftWaist, JointType.LeftKnee),
+    (JointType.LeftKnee, JointType.LeftFoot),
+    (JointType.Neck, JointType.RightShoulder),
+    (JointType.RightShoulder, JointType.RightElbow),
+    (JointType.RightElbow, JointType.RightHand),
+    (JointType.RightShoulder, JointType.RightEar),
+    (JointType.Neck, JointType.LeftShoulder),
+    (JointType.LeftShoulder, JointType.LeftElbow),
+    (JointType.LeftElbow, JointType.LeftHand),
+    (JointType.LeftShoulder, JointType.LeftEar),
+    (JointType.Neck, JointType.Nose),
+    (JointType.Nose, JointType.RightEye),
+    (JointType.Nose, JointType.LeftEye),
+    (JointType.RightEye, JointType.RightEar),
+    (JointType.LeftEye, JointType.LeftEar),
+)
+
+LIMBS_FROM = np.asarray([a for a, _ in LIMBS], np.int32)
+LIMBS_TO = np.asarray([b for _, b in LIMBS], np.int32)
+
+# Limbs that never spawn a new person subset during grouping (the
+# shoulder -> ear links).
+NON_SPAWNING_LIMBS: Tuple[int, ...] = (9, 13)
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceConfig:
+    """Pose inference parameters."""
+
+    img_size: int = 368          # network input long/short side target
+    scales: Tuple[float, ...] = (0.5, 1.0, 1.5, 2.0)  # precise-mode pyramid
+    heatmap_size: int = 320      # postprocess map target size (fast path)
+    downscale: int = 8           # network output stride
+    gaussian_sigma: float = 2.5  # heatmap smoothing before peak NMS
+    # Peak NMS: "scipy" (reflect-boundary Gaussian, strict ``>`` rule) or
+    # "conv" (zero-pad Gaussian conv of ``ksize``, ``>=`` rule; not ported).
+    nms_mode: str = "scipy"
+    ksize: int = 17              # conv-mode smoothing kernel size
+    n_integ_points: int = 10     # samples along each candidate limb
+    n_integ_points_thresh: int = 8
+    heatmap_peak_thresh: float = 0.05
+    inner_product_thresh: float = 0.05
+    limb_length_ratio: float = 1.0
+    length_penalty_value: float = 1.0
+    n_subset_limbs_thresh: int = 3
+    subset_score_thresh: float = 0.2
+    # Static capacities: peaks per joint and person subsets per image.
+    max_peaks_per_joint: int = 32
+    max_subsets: int = 64
+    # Precise mode: build the scale pyramid on the device from one upload
+    # of the original image (False, the host pyramid, is not ported).
+    device_pyramid: bool = True
+    # Run the two smallest precise-mode scales as one batch-2 forward at
+    # the larger one's padded geometry.
+    fuse_small_scales: bool = False
+    # Cap on the precise-mode postprocess resolution's long side (0 = the
+    # original image resolution).
+    max_postprocess_len: int = 0
+    # Mean RGB padding value of the precise-mode canvas.
+    pad_value: Tuple[int, int, int] = (104, 117, 123)
+    # After ``PoseDetector.quantize()``, forwards whose network input's
+    # short side is below this stay float32 (0 = quantize every geometry).
+    quant_min_side: int = 256
+
+
+INFERENCE = InferenceConfig()

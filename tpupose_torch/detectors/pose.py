@@ -34,15 +34,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpupose.config import INFERENCE, NUM_JOINTS, InferenceConfig
-from tpupose.weights.chainer_npz import warn_on_load_report
+from tpupose_torch.config import INFERENCE, NUM_JOINTS, InferenceConfig
 from tpupose_torch.models import ARCHS
 from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
                                       resize_cv2_cubic, resize_u8_linear)
 from tpupose_torch.quant import (CONV7_IMPLS, calibrate_ranges,
                                  make_quant_apply, qtree_to_device, quantize)
-from tpupose_torch.weights import load_chainer_npz, load_flax_params
+from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
+                                   warn_on_load_report)
 
 
 def preprocess_u8(img_u8: torch.Tensor) -> torch.Tensor:

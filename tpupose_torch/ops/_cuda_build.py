@@ -21,8 +21,9 @@ from typing import Dict, Sequence
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3")
+NVCC_FLAGS = ARCH_FLAGS + ("-shared", "-Xcompiler", "-fPIC")
 
 
 def source(name: str) -> str:
@@ -36,7 +37,7 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     return shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
@@ -56,7 +57,7 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)]))
+                [nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)]))
         failed = [name for name, (_, proc) in procs.items()
                   if proc.wait() != 0]
         if failed:

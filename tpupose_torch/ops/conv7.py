@@ -5,9 +5,10 @@ share.
 Replaces the Pallas TPU kernel ``tpupose/ops/pallas/conv7.py::conv7_s8``.
 ``conv7_s8`` routes by the device of its inputs only: CPU tensors take
 ``conv7_s8_reference`` (im2col, ``torch._int_mm``, the plain epilogue);
-CUDA tensors launch ``tpupose_torch/csrc/conv7_s8.cu`` or raise.  There is
-no grid-size cut: PyTorch has no int8 convolution on the card, so the
-kernel takes every 7x7 layer it is given.
+CUDA tensors launch ``tpupose_torch/csrc/conv7_s8.cu``, an implicit GEMM on
+the int8 tensor cores, or raise.  There is no grid-size cut: PyTorch has no
+int8 convolution on the card, so the kernel takes every 7x7 layer it is
+given.
 """
 
 from __future__ import annotations
@@ -24,9 +25,16 @@ from tpupose_torch.ops import _cuda_build
 from tpupose_torch.ops.requant import requant_epilogue_reference
 
 MAX_GROUPS = 4        # CONV7_MAX_GROUPS in csrc/conv7_s8.cu
-OUT_BLOCK = 64        # kOutBlock: output channels per block
-HALO_TILE_PIXELS = 10 * 14  # kInH * kInW: the haloed input tile
+K_STEP = 32           # channels per mma k step: C pads to a multiple
+TILE_W = 16           # kTileW: output columns of a block's tile
+TILE_N = 32           # kTileN: output channels of a block
+TAPS_PER_STEP = 4     # kTapsPerStep: warps along K, one tap each per step
+STAGES = 3            # kStages: depth of the weight ring, in steps
+# The kernel's block tiles by index (conv7_s8_launch's `tile`): output rows
+# of a block, 16 columns wide; 2 rows per warp along M.
+TILE_ROWS = (4, 8)
 MAX_SMEM_BYTES = 232448     # shared memory one Hopper block may use
+NUM_SMS = 132               # streaming multiprocessors of an H100 SXM
 
 
 def _round_up(n: int, m: int) -> int:
@@ -84,22 +92,50 @@ def conv7_s8_reference(parts: Sequence[torch.Tensor],
     return requant_epilogue_reference(accs, mults, bias, relu, lo=0.0)
 
 
+def c_pad(channels: int) -> int:
+    """Channels of a group as the kernel stages them: a multiple of
+    ``K_STEP``, the extra channels zero."""
+    return _round_up(channels, K_STEP)
+
+
 def pack_conv7_weights(kq: torch.Tensor) -> torch.Tensor:
-    """(7, 7, C, O) int8 HWIO -> the kernel's (49, C4, O) int32 words: word
-    k holds input channels 4k..4k+3 (little-endian bytes), C zero-padded to
-    a multiple of 16 so C4 is a multiple of 4.  Done once per layer, at
-    ``quantize()``."""
+    """(7, 7, C, O) int8 HWIO -> the kernel's (49, O, C_pad) int8: tap
+    ``dy * 7 + dx``, then output channel, then input channel (K contiguous
+    per output channel, the B fragments' layout), C zero-padded to
+    ``c_pad(C)``.  Done once per layer, at ``quantize()``."""
     _, _, c, o = kq.shape
-    c_pad = _round_up(c, 16)
-    kp = kq.new_zeros((7, 7, c_pad, o))
-    kp[:, :, :c] = kq
-    kp = kp.reshape(49, c_pad // 4, 4, o).permute(0, 1, 3, 2).contiguous()
-    return kp.view(torch.int32).reshape(49, c_pad // 4, o)
+    kp = kq.new_zeros((49, o, c_pad(c)))
+    kp[:, :, :c] = kq.reshape(49, c, o).transpose(1, 2)
+    return kp
 
 
-def smem_bytes(channels: Sequence[int]) -> int:
-    """Shared memory of one block for groups of these channel counts."""
-    return HALO_TILE_PIXELS * max(_round_up(c, 16) // 4 for c in channels) * 4
+def smem_bytes(channels: Sequence[int], tile: Optional[int] = None) -> int:
+    """Shared memory of one block for groups of these channel counts: the
+    haloed input tile, then the weight ring (``STAGES`` steps of
+    ``TAPS_PER_STEP`` taps of ``TILE_N`` rows), which the cross-warp sum of
+    the int32 partials reuses, at a per-pixel stride of ``max C_pad + 16``
+    bytes.  ``tile``: an index into ``TILE_ROWS``; None gives the largest
+    over all tiles."""
+    stride = max(c_pad(c) for c in channels) + 16
+    rows = TILE_ROWS if tile is None else (TILE_ROWS[tile],)
+    return max((r + 6) * (TILE_W + 6) * stride
+               + max(STAGES * TAPS_PER_STEP * TILE_N * stride,
+                     TAPS_PER_STEP * (r // 2) * 32 * 32 * 4)
+               for r in rows)
+
+
+def blocks(b: int, h: int, w: int, o: int, tile: int) -> int:
+    """Blocks of one launch with tile ``tile``."""
+    return -(-h // TILE_ROWS[tile]) * -(-w // TILE_W) * (o // TILE_N) * b
+
+
+@functools.lru_cache(maxsize=None)
+def pick_tile(b: int, h: int, w: int, o: int) -> int:
+    """The tile for a (b, h, w) grid with o outputs: 8 rows where that
+    still gives half a wave of blocks on the card's SMs, else 4.  Measured
+    on an H100 (``csrc/conv7_s8.cu``'s note): taller tiles re-read the
+    layer's weights fewer times and win once the grid fills most SMs."""
+    return 1 if blocks(b, h, w, o, 1) >= NUM_SMS // 2 else 0
 
 
 def check_inputs(parts: Sequence[torch.Tensor],
@@ -112,22 +148,25 @@ def check_inputs(parts: Sequence[torch.Tensor],
     if not (g >= 1 and len(kernels_q) == g and len(mults) == g):
         raise ValueError(f"conv7_s8: {g} groups, {len(kernels_q)} kernels, "
                          f"{len(mults)} mults")
-    b, h, w = parts[0].shape[:3]
+    # Each shape is read once: the checks run before every launch.
+    bhw = parts[0].shape[:3]
     o = kernels_q[0].shape[-1]
     dev = parts[0].device
     for x, k in zip(parts, kernels_q):
-        if (x.dtype != torch.int8 or x.dim() != 4
-                or tuple(x.shape[:3]) != (b, h, w) or x.device != dev):
-            raise ValueError(f"conv7_s8: groups must be int8 ({b}, {h}, {w}, "
-                             f"C) on {dev}, got {x.dtype} {tuple(x.shape)} "
-                             f"on {x.device}")
-        if (k.dtype != torch.int8 or tuple(k.shape) != (7, 7, x.shape[-1], o)
+        xs = x.shape
+        if (x.dtype != torch.int8 or len(xs) != 4 or xs[:3] != bhw
+                or x.device != dev):
+            raise ValueError(f"conv7_s8: groups must be int8 "
+                             f"{(*bhw, 'C')} on {dev}, got {x.dtype} "
+                             f"{tuple(xs)} on {x.device}")
+        ks = k.shape
+        if (k.dtype != torch.int8 or ks != (7, 7, xs[-1], o)
                 or k.device != dev):
-            raise ValueError(f"conv7_s8: kernel {k.dtype} {tuple(k.shape)} "
-                             f"does not fit a {tuple(x.shape)} group with "
+            raise ValueError(f"conv7_s8: kernel {k.dtype} {tuple(ks)} "
+                             f"does not fit a {tuple(xs)} group with "
                              f"{o} outputs on {dev}")
     for t in (*mults, bias):
-        if (t.dtype != torch.float32 or tuple(t.shape) != (o,)
+        if (t.dtype != torch.float32 or t.shape != (o,)
                 or t.device != dev):
             raise ValueError(f"conv7_s8: mults and bias must be float32 "
                              f"({o},) on {dev}, got {t.dtype} "
@@ -136,14 +175,20 @@ def check_inputs(parts: Sequence[torch.Tensor],
 
 def check_kernel_limits(channels: Sequence[int], out_channels: int) -> None:
     """Raise ``ValueError`` where the CUDA kernel cannot take a layer: more
-    than ``MAX_GROUPS`` groups, outputs not a multiple of ``OUT_BLOCK``, or
-    a haloed input tile beyond one block's shared memory."""
+    than ``MAX_GROUPS`` groups, outputs not a multiple of ``TILE_N``, or a
+    block's shared memory, at the largest tile, beyond what one Hopper block
+    may use."""
+    _check_kernel_limits(tuple(channels), out_channels)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_kernel_limits(channels, out_channels: int) -> None:
     if len(channels) > MAX_GROUPS:
         raise ValueError(f"conv7_s8: {len(channels)} groups; the kernel "
                          f"takes 1 to {MAX_GROUPS}")
-    if out_channels % OUT_BLOCK:
+    if out_channels % TILE_N:
         raise ValueError(f"conv7_s8: {out_channels} output channels, not a "
-                         f"multiple of {OUT_BLOCK}")
+                         f"multiple of {TILE_N}")
     smem = smem_bytes(channels)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"conv7_s8: {smem} bytes of shared memory for "
@@ -154,8 +199,8 @@ def conv7_s8(parts: Sequence[torch.Tensor],
              kernels_q: Sequence[torch.Tensor],
              mults: Sequence[torch.Tensor], bias: torch.Tensor,
              relu: bool = True,
-             packed: Optional[Sequence[torch.Tensor]] = None
-             ) -> torch.Tensor:
+             packed: Optional[Sequence[torch.Tensor]] = None,
+             tile: Optional[int] = None) -> torch.Tensor:
     """Fused int8 7x7 SAME conv + w8a8 requantize.
 
     ``parts``: G input groups (B, H, W, C_g) int8 (the refine stages' concat
@@ -163,6 +208,8 @@ def conv7_s8(parts: Sequence[torch.Tensor],
     ``mults``: G of (O,) float32; ``bias``: (O,) float32.  Returns
     (B, H, W, O) int8 equal to ``conv7_s8_reference``.  ``packed``: the
     kernels already through ``pack_conv7_weights`` (packed here if None).
+    ``tile``: an index into ``TILE_ROWS``, ``pick_tile``'s choice if
+    None.
 
     CPU tensors run the plain version; CUDA tensors run the kernel, which
     adds one to ``conv7_s8.launches`` per launch and to
@@ -176,34 +223,52 @@ def conv7_s8(parts: Sequence[torch.Tensor],
         raise ValueError(f"conv7_s8: unsupported device {dev}")
     b, h, w, _ = parts[0].shape
     o = kernels_q[0].shape[-1]
-    channels = [x.shape[-1] for x in parts]
+    channels = tuple(x.shape[-1] for x in parts)
     check_kernel_limits(channels, o)
+    if tile is None:
+        tile = pick_tile(b, h, w, o)
+    if not 0 <= tile < len(TILE_ROWS):
+        raise ValueError(f"conv7_s8: no tile {tile}; the kernel has "
+                         f"{len(TILE_ROWS)}")
     if not all(x.is_contiguous() for x in parts):
         raise ValueError("conv7_s8: the kernel takes contiguous groups")
     if packed is None:
         packed = [pack_conv7_weights(k) for k in kernels_q]
-    c4s = [_round_up(c, 16) // 4 for c in channels]
-    for p, c4 in zip(packed, c4s):
-        if (p.dtype != torch.int32 or tuple(p.shape) != (49, c4, o)
+    c_pads = [c_pad(c) for c in channels]
+    for p, cp in zip(packed, c_pads):
+        if (p.dtype != torch.int8 or tuple(p.shape) != (49, o, cp)
                 or p.device != dev or not p.is_contiguous()):
             raise ValueError(f"conv7_s8: packed weights must be contiguous "
-                             f"int32 (49, {c4}, {o}) on {dev}")
-    g = len(parts)
-    mult = torch.stack(list(mults)).contiguous()
+                             f"int8 (49, {o}, {cp}) on {dev}")
+    xs = [x.data_ptr() for x in parts]
+    ws = [p.data_ptr() for p in packed]
+    # cp.async copies 16-byte chunks of the weights and of the groups whose
+    # pixels are whole chunks.
+    if any(ptr % 16 for ptr, c in zip(xs, channels) if c % 16 == 0) or any(
+            ptr % 16 for ptr in ws):
+        raise ValueError("conv7_s8: groups and packed weights must be "
+                         "16-byte aligned")
+    if not all(m.is_contiguous() for m in mults):
+        raise ValueError("conv7_s8: the kernel takes contiguous mults")
     bias = bias.contiguous()
     out = torch.empty((b, h, w, o), dtype=torch.int8, device=dev)
     lib = _library()
+    g = len(parts)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    args = ((vp * g)(*xs), (vp * g)(*ws),
+            (vp * g)(*[m.data_ptr() for m in mults]), (ci * g)(*channels),
+            (ci * g)(*c_pads), g, bias.data_ptr(), out.data_ptr(), b, h, w,
+            o, int(relu), tile)
+    if dev.index in (None, torch.cuda.current_device()):
         err = lib.conv7_s8_launch(
-            (vp * g)(*[x.data_ptr() for x in parts]),
-            (vp * g)(*[p.data_ptr() for p in packed]),
-            (ci * g)(*channels), (ci * g)(*c4s), g, mult.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), b, h, w, o, int(relu), stream)
+            *args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.conv7_s8_launch(
+                *args, torch.cuda.current_stream().cuda_stream)
     _cuda_build.check(lib, "conv7_s8", err)
     conv7_s8.launches += 1
-    conv7_s8.shapes[(b, h, w, tuple(channels))] += 1
+    conv7_s8.shapes[(b, h, w, channels)] += 1
     return out
 
 
@@ -216,7 +281,7 @@ def _library() -> ctypes.CDLL:
     lib = _cuda_build.load("conv7_s8")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.conv7_s8_launch.argtypes = [
-        ctypes.POINTER(p), ctypes.POINTER(p), ctypes.POINTER(i),
-        ctypes.POINTER(i), i, p, p, p, i, i, i, i, i, p]
+        ctypes.POINTER(p), ctypes.POINTER(p), ctypes.POINTER(p),
+        ctypes.POINTER(i), ctypes.POINTER(i), i, p, p, i, i, i, i, i, i, p]
     lib.conv7_s8_launch.restype = i
     return lib

@@ -17,8 +17,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from tpupose.config import (LIMBS_FROM, LIMBS_TO, NON_SPAWNING_LIMBS,
-                            NUM_JOINTS, InferenceConfig)
+from tpupose_torch.config import (LIMBS_FROM, LIMBS_TO, NON_SPAWNING_LIMBS,
+                                  NUM_JOINTS, InferenceConfig)
 from tpupose_torch.ops.paf import Connections
 from tpupose_torch.ops.peaks import Peaks
 

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpupose.config import InferenceConfig
+from tpupose_torch.config import InferenceConfig
 from tpupose_torch.ops.peaks import Peaks
 
 

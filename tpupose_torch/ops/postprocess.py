@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpupose.config import LIMBS_FROM, LIMBS_TO, InferenceConfig
+from tpupose_torch.config import LIMBS_FROM, LIMBS_TO, InferenceConfig
 from tpupose_torch.ops.grouping import group_keypoints, subsets_to_poses
 from tpupose_torch.ops.paf import (compute_connections,
                                    compute_connections_from_rows)

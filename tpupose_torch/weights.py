@@ -3,20 +3,80 @@
 
 Two sources: the JAX package's Flax parameter tree (HWIO kernels, as numpy
 arrays) and the reference's Chainer model ``.npz`` (``"<layer>/W"`` OIHW
-kernels, ``"<layer>/b"`` biases).  Layer names route through the JAX
-package's own ``layer_to_path``, so both packages read one file the same
-way.
+kernels, ``"<layer>/b"`` biases).  Layer names route through
+``layer_to_path``, the port's copy of the JAX package's, so both packages
+read one file the same way (``tests/test_torch_config.py`` holds the two
+equal on every CocoPoseNet layer).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import re
+import warnings
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from tpupose.weights.chainer_npz import layer_to_path
+_POSE_STAGE1_RE = re.compile(r"^conv5_[1-5]_CPM(_L[12])$")
+_POSE_MSTAGE_RE = re.compile(r"^Mconv[1-7]_stage([2-9])(_L[12])$")
+_SINGLE_MSTAGE_RE = re.compile(r"^Mconv[1-7]_stage([2-9])$")
+
+
+def layer_to_path(layer: str) -> Tuple[str, str]:
+    """Map a Chainer layer name to its ``(block, layer)`` path: the conv
+    lives at ``params[block][layer]["conv"]`` of a Flax tree and at
+    ``model.<block>.<layer>.conv`` of the torch models."""
+    m = _POSE_STAGE1_RE.match(layer)
+    if m:
+        return f"stage1{m.group(1)}", layer
+    m = _POSE_MSTAGE_RE.match(layer)
+    if m:
+        return f"stage{m.group(1)}{m.group(2)}", layer
+    m = _SINGLE_MSTAGE_RE.match(layer)
+    if m:
+        return f"stage{m.group(1)}", layer
+    if layer in ("conv6_1_CPM", "conv6_2_CPM"):
+        return "stage1", layer
+    # Everything else (conv1_1 .. conv5_3_CPM and the *_CPM adapters) is stem.
+    return "stem", layer
+
+
+# Keys the reference's own converter never copies: its posenet layer list
+# omits ``conv5_5_CPM_L1``, so official ``coco_posenet.npz`` files lack
+# these two entries (the layer keeps its random init).  Anything else
+# missing or left over means a wrong or truncated file.
+EXPECTED_MISSING = {
+    "posenet": frozenset({"conv5_5_CPM_L1/W", "conv5_5_CPM_L1/b"}),
+}
+
+
+def warn_on_load_report(report, path: str, arch: str = "posenet") -> None:
+    """Warn when an npz load left layers at their random init (missing keys
+    beyond the documented omission) or carried keys the model has no layer
+    for (a file of another architecture)."""
+    expected = EXPECTED_MISSING.get(arch, frozenset())
+    missing = [k for k in report["missing"] if k not in expected]
+    unused = list(report["unused"])
+    if not (missing or unused):
+        return
+    parts = []
+    if missing:
+        parts.append(
+            f"{len(missing)} model layers not in the file (left at "
+            f"RANDOM init): {sorted(missing)[:6]}"
+            + (" ..." if len(missing) > 6 else ""))
+    if unused:
+        parts.append(
+            f"{len(unused)} file keys matched no model layer: "
+            f"{unused[:6]}" + (" ..." if len(unused) > 6 else ""))
+    warnings.warn(
+        f"weight file {path!r} does not fully match the {arch} model — "
+        + "; ".join(parts)
+        + " (only the reference's documented conv5_5_CPM_L1 omission "
+          "is expected for posenet)",
+        RuntimeWarning, stacklevel=3)
 
 
 def _conv(model: nn.Module, block: str, layer: str) -> nn.Conv2d:
