@@ -5,11 +5,12 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. Print the card (``nvidia-smi`` name and power limit) and build the three
+1. Print the card (``nvidia-smi`` name and power limit) and build the four
    CUDA kernels from ``tpupose_torch/csrc/`` (``blur_nms.cu``,
-   ``conv7_s8.cu``, ``requant.cu``), one ``nvcc`` per source, in parallel,
-   beside ``nvcc -Xptxas -v`` on ``conv7_s8.cu`` (registers, shared memory
-   and spills of each of its kernels, printed).
+   ``conv7_s8.cu``, ``conv_s8.cu``, ``requant.cu``), one ``nvcc`` per
+   source, in parallel, beside ``nvcc -Xptxas -v`` on ``conv7_s8.cu`` and
+   ``conv_s8.cu`` (registers, shared memory and spills of each of their
+   kernels, printed).
 2. Hold the blur+NMS kernel against its plain PyTorch version on the card at
    the fast path's map shape (18, 320, 432), the precise path's
    (18, 480, 640), a planted-peak map (18, 46, 62), a map smaller than the
@@ -27,32 +28,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
    batches of 2 and 3, at a grid that is a multiple of no tile and at a
    grid smaller than the window, each at every block tile of the kernel;
    requant at conv1_2's shapes (fast path, pyramid scales 0.5 and 2.0 at
-   B = 2) and a refine stage's.  Time conv7 per pyramid grid from CUDA-
-   graph replays, in turns with its plain version, ``torch._int_mm`` on
-   the prebuilt patch matrix (128 -> 128) and each of its tiles, beside
-   its bound from the shapes; requant with CUDA events.
+   B = 2) and a refine stage's; conv_s8 at the fast path's conv1_2,
+   conv3_2, conv4_2, conv5_4 and Mconv6 layers and at the input layer,
+   ragged grids, a batch of 3 and the precise path's (2, 736, 984) canvas,
+   each at every tile of the kernel.  Time conv7 per pyramid grid and
+   conv_s8 at its five layers from CUDA-graph replays, in turns with their
+   plain versions, ``torch._int_mm`` on the prebuilt patch matrix and each
+   of their tiles, beside their bounds from the shapes; requant likewise
+   at conv1_2's shape.
 5. Drive the quantized fast path: ``quantize([f, f[:, ::-1]])`` of the
    calibrated detector, the three frames through ``__call__`` and
-   ``detect_batch``.  Checks 50 conv7 and 30 requant launches per forward,
-   poses, both entry points agreeing, the card's int8 head maps bit-equal to
-   the CPU's int8 forward on the same tree, and the int8 maps' fidelity to
-   the f32 ones (rms, corr; fails below corr 0.9).
+   ``detect_batch``.  Checks 50 conv7, 30 conv_s8 and no requant launches
+   per forward, poses, both entry points agreeing, the card's int8 head
+   maps bit-equal to the CPU's int8 forward on the same tree, and the int8
+   maps' fidelity to the f32 ones (rms, corr; fails below corr 0.9).
 6. Drive the precise pyramid (4 scales), f32 and quantized, on two frames
    through ``__call__`` and ``detect_batch`` (B = 2).  Checks poses, both
    entry points agreeing, blur+NMS at the original (18, 480, 640)
-   resolution, conv7 at all four pyramid grids, and, per pyramid scale, the
-   card's int8 maps bit-equal to the CPU's int8 forward on the same tree.
+   resolution, conv7 at all four pyramid grids, 30 conv_s8 launches per
+   50 conv7 ones and no requant, and, per pyramid scale, the card's int8
+   maps bit-equal to the CPU's int8 forward on the same tree.
 
-After each driven path (3, 5, 6), every kernel is held against its plain
-version, bit-equal, on seeded random inputs at every shape the path gave it
-(the wrappers' ``shapes`` counters).
-7. Print where the time goes: the fast path's split, the int8 forward with
-   the conv7 kernel against its im2col route, conv7's summed device time
-   inside one int8 forward (``torch.profiler``), f32 against int8 precise
-   ``__call__``, and conv7 against its plain version at each pyramid grid.
+After each driven path (3, 5, 6 and phase 7's im2col forward), every
+kernel is held against its plain version, bit-equal, on seeded random
+inputs at every shape the path gave it (the wrappers' ``shapes``
+counters).
+7. Print where the time goes: the fast path's split; the int8 forward on
+   its kernel route (checked: 50 conv7, 30 conv_s8, no requant launches)
+   against its im2col route (checked: 80 requant launches, one per int8
+   layer that is not a head), by CUDA events, and each route's device time
+   by operation (``torch.profiler``: the costliest operations by name,
+   launches per forward); f32 against int8 precise ``__call__``; conv7
+   per pyramid grid and conv_s8 per timed layer against their plain
+   versions.
 
 The last two lines are the kernels' JSON record (each kernel's time, plain
-time, bound and launches on the driven paths) and the result line.
+time, bound and launches on the driven paths; requant's launches are those
+of phase 7's im2col forward, the only route that runs it) and the result
+line.
 """
 
 from __future__ import annotations
@@ -364,6 +377,33 @@ def requant_bound(shape, groups):
                   n * (3 * groups + 5), F32_OPS_PER_S)
 
 
+def conv_s8_bound(b, h, w, c, o, k):
+    """conv_s8's bound: the int8 input, int8 weights, mult and bias read
+    once and the int8 output written once; 2 int8 operations per
+    multiply-add of the real (unpadded) channels."""
+    n_bytes = b * h * w * c + k * k * c * o + 8 * o + b * h * w * o
+    return _bound(n_bytes, 2 * b * h * w * o * k * k * c, INT8_OPS_PER_S)
+
+
+def _conv_s8_case(rng, b, h, w, c, o, k):
+    """Seeded conv_s8 inputs on the card: the input spans the input layer's
+    [-128, 127], and the mult puts the epilogue's values around
+    [-60, 120], so the ReLU, the rounding and both clips act."""
+    import numpy as np
+    import torch
+
+    def put(a):
+        return torch.from_numpy(a).cuda()
+
+    x = put(rng.randint(-128, 128, (b, h, w, c)).astype(np.int8))
+    kq = put(rng.randint(-127, 128, (k, k, c, o)).astype(np.int8))
+    acc_std = 74.0 * 73.0 * (k * k * c) ** 0.5
+    mult = put((rng.uniform(0.5, 1.5, o) * 40.0 / acc_std).astype(
+        np.float32))
+    bias = put(rng.uniform(-20.0, 40.0, o).astype(np.float32))
+    return x, kq, mult, bias
+
+
 def _conv7_case(rng, b, h, w, channels):
     import numpy as np
     import torch
@@ -408,6 +448,7 @@ def check_path_shapes(label, cfg, shapes):
 
     from tpupose_torch.ops import blur_nms as bn
     from tpupose_torch.ops import conv7 as c7
+    from tpupose_torch.ops import conv_s8 as cs
     from tpupose_torch.ops import requant as rq
 
     rng = np.random.RandomState(1)
@@ -426,6 +467,13 @@ def check_path_shapes(label, cfg, shapes):
         if not torch.equal(got, ref):
             raise AssertionError(f"{label}: conv7_s8 disagrees at "
                                  f"{(b, h, w)} groups {channels}")
+    for b, h, w, c, o, k in sorted(shapes["conv_s8"]):
+        x, kq, mult, bias = _conv_s8_case(rng, b, h, w, c, o, k)
+        got = cs.conv_s8(x, kq, mult, bias)
+        ref = cs.conv_s8_reference(x, kq, mult, bias)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: conv_s8 disagrees at "
+                                 f"{(b, h, w)} {c} -> {o}, {k}x{k}")
     for shape, groups, relu, lo in sorted(shapes["requant_epilogue"]):
         accs, mults, bias = _requant_case(gen, shape, groups)
         got = rq.requant_epilogue(accs, mults, bias, relu, lo)
@@ -437,7 +485,8 @@ def check_path_shapes(label, cfg, shapes):
     print(f"{label}: every kernel bit-equal to its plain version at every "
           f"shape the path gave it: blur_nms "
           f"{sorted(shapes['blur_nms'])}, conv7_s8 "
-          f"{len(shapes['conv7_s8'])} shapes, requant_epilogue "
+          f"{len(shapes['conv7_s8'])} shapes, conv_s8 "
+          f"{len(shapes['conv_s8'])} shapes, requant_epilogue "
           f"{len(shapes['requant_epilogue'])} shapes (largest "
           f"{max(shapes['requant_epilogue'], default=None, key=_numel)})")
 
@@ -448,21 +497,21 @@ def _numel(requant_key):
     return math.prod(requant_key[0])
 
 
-def _patch_matrix(parts):
-    """The prebuilt im2col patch matrix of one group, padded as ``int_mm``
-    pads it (M to a multiple of 32, K to a multiple of 8)."""
+def _patch_matrix(x, k):
+    """The prebuilt im2col patch matrix of a k x k layer's input, padded as
+    ``int_mm`` pads it (M to a multiple of 32, K to a multiple of 8)."""
     import torch
     import torch.nn.functional as F
 
     from tpupose_torch.ops import conv7 as c7
 
-    (x,) = parts
     b, h, w, c = x.shape
-    xp = F.pad(x, (0, 0, 3, 3, 3, 3))
-    a = torch.cat([xp[:, dy:dy + h, dx:dx + w, :] for dy in range(7)
-                   for dx in range(7)], dim=-1).reshape(b * h * w, 49 * c)
-    m, k = a.shape
-    return F.pad(a, (0, c7._round_up(k, 8) - k, 0,
+    r = k // 2
+    xp = F.pad(x, (0, 0, r, r, r, r))
+    a = torch.cat([xp[:, dy:dy + h, dx:dx + w, :] for dy in range(k)
+                   for dx in range(k)], dim=-1).reshape(b * h * w, k * k * c)
+    m, kk = a.shape
+    return F.pad(a, (0, c7._round_up(kk, 8) - kk, 0,
                      c7._round_up(m, 32) - m)).contiguous()
 
 
@@ -512,7 +561,7 @@ def check_int8_kernels():
                                                       mults, bias),
                "kernel": tiles[pick]}
         if channels == (128,):
-            patches = _patch_matrix(parts)
+            patches = _patch_matrix(parts[0], 7)
             wmat = kernels[0].reshape(49 * 128, 128).contiguous()
             fns["int_mm"] = lambda: torch._int_mm(patches, wmat)
         times = _round_robin_ms(fns, iters=20, timer=_graph_ms)
@@ -551,27 +600,119 @@ def check_int8_kernels():
         if not torch.equal(got, ref):
             raise AssertionError(f"requant kernel disagrees at {shape}")
         if shape == (1, 368, 496, 64):
-            times = _round_robin_ms({
-                "plain": lambda: rq.requant_epilogue_reference(
-                    accs, mults, bias, relu, lo),
-                "kernel": lambda: rq.requant_epilogue(
-                    accs, mults, bias, relu, lo)}, iters=50)
+            fns = {"plain": lambda: rq.requant_epilogue_reference(
+                       accs, mults, bias, relu, lo),
+                   "kernel": lambda: rq.requant_epilogue(
+                       accs, mults, bias, relu, lo)}
+            times = _round_robin_ms(fns, iters=20, timer=_graph_ms)
+            eager = _cuda_ms(fns["kernel"], 50)
             bound = requant_bound(shape, groups)
             print(f"requant_epilogue {shape}: kernel {times['kernel']!r} ms, "
                   f"plain {times['plain']!r} ms, bound {bound[0]!r} ms "
-                  f"({bound[1]}) (CUDA events, mean of 2x50)")
+                  f"({bound[1]}) (CUDA-graph replays of 20 calls, in "
+                  f"turns); kernel launched eagerly {eager!r} ms (CUDA "
+                  f"events)")
     out["requant_epilogue"] = (float(worst), times["kernel"],
                                times["plain"], bound)
     return out, per_grid
 
 
+# conv_s8's timed layers of the fast int8 path, (B, H, W, C, O, k), and
+# the shapes it is only held bit-equal at: the input layer, ragged grids
+# and N blocks at O = 64, a batch, and the precise path's largest canvas.
+CONV_S8_TIMED = {"conv1_2": (1, 368, 496, 64, 64, 3),
+                 "conv3_2": (1, 92, 124, 256, 256, 3),
+                 "conv4_2": (1, 46, 62, 512, 512, 3),
+                 "conv5_4": (1, 46, 62, 128, 512, 1),
+                 "Mconv6": (1, 46, 62, 128, 128, 1)}
+CONV_S8_CHECKED = [(1, 368, 496, 3, 64, 3), (1, 47, 61, 128, 64, 3),
+                   (1, 5, 7, 64, 64, 3), (1, 23, 31, 128, 128, 1),
+                   (3, 46, 62, 128, 128, 3), (2, 47, 61, 256, 128, 1),
+                   (2, 736, 984, 64, 64, 3)]
+
+
+def check_conv_s8():
+    """Phase 4, conv_s8: bit-equal to its plain version at every timed and
+    checked shape, each at every tile of the kernel; at the timed layers,
+    CUDA-graph times, in turns, of the kernel (``pick_tile``'s tile), its
+    plain route, ``torch._int_mm`` on the prebuilt patch matrix and each
+    tile, beside its bound.  Returns ``(record, {layer: times})``, the
+    record at conv1_2: ``(max_abs_err, ms, plain_ms, bound)``."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.ops import conv_s8 as cs
+
+    rng = np.random.RandomState(2)
+    worst, per_layer = 0, {}
+    cases = [(name, shape) for name, shape in CONV_S8_TIMED.items()]
+    cases += [(None, shape) for shape in CONV_S8_CHECKED]
+    for name, (b, h, w, c, o, k) in cases:
+        x, kq, mult, bias = _conv_s8_case(rng, b, h, w, c, o, k)
+        packed = cs.pack_conv_s8_weights(kq)
+        ref = cs.conv_s8_reference(x, kq, mult, bias)
+        tiles = {}
+        for tile, (rows, warps_k, tile_n) in enumerate(cs.TILES):
+            if o % tile_n:
+                continue
+            got = cs.conv_s8(x, kq, mult, bias, packed=packed, tile=tile)
+            torch.cuda.synchronize()
+            err = (got.int() - ref.int()).abs().max().item()
+            worst = max(worst, err)
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"conv_s8 kernel disagrees at {(b, h, w)} {c} -> {o}, "
+                    f"{k}x{k}, tile {(rows, warps_k, tile_n)}: max_abs_err "
+                    f"{err}, {(got != ref).sum().item()} of {ref.numel()}")
+            tiles[tile] = lambda tile=tile: cs.conv_s8(
+                x, kq, mult, bias, packed=packed, tile=tile)
+        pick = cs.pick_tile(b, h, w, c, o, k)
+        print(f"conv_s8 {(b, h, w)} {c} -> {o} {k}x{k}: bit_equal=True at "
+              f"every tile {[cs.TILES[t] for t in tiles]} (picks "
+              f"{cs.TILES[pick]}), "
+              f"positive={float((ref > 0).float().mean()):.3f}, "
+              f"at 127={float((ref == 127).float().mean()):.3f}")
+        if name is None:
+            continue
+        bound, bound_by = conv_s8_bound(b, h, w, c, o, k)
+        patches = _patch_matrix(x, k)
+        wmat = torch.nn.functional.pad(
+            kq.reshape(k * k * c, o),
+            (0, 0, 0, patches.shape[1] - k * k * c)).contiguous()
+        fns = {"plain": lambda: cs.conv_s8_reference(x, kq, mult, bias),
+               "kernel": tiles[pick],
+               "int_mm": lambda: torch._int_mm(patches, wmat)}
+        iters = 5 if h > 200 else 20
+        times = _round_robin_ms(fns, iters=iters, timer=_graph_ms)
+        by_tile = _round_robin_ms(
+            {cs.TILES[t]: fn for t, fn in tiles.items()}, iters=iters,
+            timer=_graph_ms)
+        eager = _cuda_ms(tiles[pick], iters)
+        macs = b * h * w * o * k * k * c
+        print(f"conv_s8 {name} {(b, h, w)} {c} -> {o} {k}x{k}: "
+              + ", ".join(f"{n} {v!r} ms" for n, v in times.items())
+              + f", bound {bound!r} ms ({bound_by}), kernel "
+              f"{macs / times['kernel'] / 1e9!r} T MAC/s; per tile (rows, "
+              f"K warps, channels): "
+              + ", ".join(f"{n} {v!r}" for n, v in by_tile.items())
+              + f" ms (CUDA-graph replays of {iters} calls, in turns); "
+              f"kernel launched eagerly {eager!r} ms (CUDA events)")
+        per_layer[name] = dict(times, bound=bound, eager=eager,
+                               tiles={str(n): v for n, v in by_tile.items()})
+        if name == "conv1_2":
+            record = (times["kernel"], times["plain"], (bound, bound_by))
+    torch.cuda.synchronize()
+    return (float(worst), *record), per_layer
+
+
 def _wrappers():
     from tpupose_torch.ops import blur_nms as bn
     from tpupose_torch.ops import conv7 as c7
+    from tpupose_torch.ops import conv_s8 as cs
     from tpupose_torch.ops import requant as rq
 
     return {"blur_nms": bn.blur_nms, "conv7_s8": c7.conv7_s8,
-            "requant_epilogue": rq.requant_epilogue}
+            "conv_s8": cs.conv_s8, "requant_epilogue": rq.requant_epilogue}
 
 
 def _reset_counts():
@@ -634,7 +775,8 @@ def run_quantized(f32_det, cfg, frames):
           f"{[len(p) for p, _ in batched]}, peak device memory "
           f"{peak_mib:.1f} MiB")
     if (counts["conv7_s8"] != 50 * forwards
-            or counts["requant_epilogue"] != 30 * forwards
+            or counts["conv_s8"] != 30 * forwards
+            or counts["requant_epilogue"] != 0
             or counts["blur_nms"] < 2 * len(frames)):
         raise AssertionError(f"quantized fast path launches {counts}")
     if sum(len(p) for p, _ in singles) < 1:
@@ -730,8 +872,11 @@ def run_precise(f32_det, cfg, frames):
         if quantized and not set(PYRAMID_GRIDS) <= set(grids):
             raise AssertionError(f"precise int8: conv7 ran at {grids}, not "
                                  f"at every pyramid grid {PYRAMID_GRIDS}")
-        if quantized and counts["requant_epilogue"] < 30:
-            raise AssertionError("precise int8: requant did not run")
+        if quantized and not (
+                counts["conv_s8"] > 0 and counts["requant_epilogue"] == 0
+                and counts["conv_s8"] * 50 == counts["conv7_s8"] * 30):
+            raise AssertionError(f"precise int8: launches {counts}, not 30 "
+                                 f"conv_s8 and 50 conv7 per forward")
         if sum(len(p) for p, _ in singles) < 1:
             raise AssertionError(f"precise {label}: no pose found")
 
@@ -791,10 +936,11 @@ def _precise_int8_vs_cpu(det, frame):
                                      f"CPU")
 
 
-def _conv7_in_forward(qdet, x, forwards: int = 3):
-    """conv7's summed device time and launches per int8 forward, and all
-    kernels' device time per forward, from ``torch.profiler``'s
-    ``key_averages``; fails if the profiler shows no device time."""
+def _profile_forward(forward, x, forwards: int = 3):
+    """The device operations of one int8 forward, from ``torch.profiler``'s
+    ``key_averages`` over ``forwards`` forwards: ``{name: (device ms,
+    launches)}`` per forward, costliest first; fails if the profiler shows
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -804,30 +950,47 @@ def _conv7_in_forward(qdet, x, forwards: int = 3):
                 return float(getattr(e, name))
         return 0.0
 
-    qdet._quant_forward(x)
+    forward(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(forwards):
-            qdet._quant_forward(x)
+            forward(x)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    conv7 = [e for e in kernels if "conv7_s8_kernel" in e.key]
-    conv7_us = sum(dev_us(e) for e in conv7)
-    if not conv7_us > 0:
-        raise AssertionError("torch.profiler shows no device time for the "
-                             "conv7 kernel")
-    return (conv7_us / forwards / 1e3,
-            sum(e.count for e in conv7) / forwards,
-            sum(dev_us(e) for e in kernels) / forwards / 1e3)
+    ops = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e):
+            ms, n = ops.get(e.key, (0.0, 0.0))
+            ops[e.key] = (ms + dev_us(e) / forwards / 1e3,
+                          n + e.count / forwards)
+    if not ops:
+        raise AssertionError("torch.profiler shows no device time")
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1][0]))
 
 
-def split_int8(qdet, x, frame, precise_ms, conv7_grids):
-    """Phase 7: the int8 forward by conv7 route against the f32 one, conv7's
-    device time inside the int8 forward, the quantized fast path's
-    ``__call__``, precise f32 vs int8, and conv7 against its plain version
-    and ``torch._int_mm`` per pyramid grid, on one line."""
+def _route_split(label, ops, top: int = 12):
+    """Print a route's device split by operation; returns (all kernels'
+    ms, launches) per forward."""
+    total_ms = sum(ms for ms, _ in ops.values())
+    total_n = sum(n for _, n in ops.values())
+    print(f"int8 forward, {label} route (torch.profiler, per forward of 3): "
+          f"{total_ms!r} ms of kernels in {total_n!r} launches; costliest:")
+    for name, (ms, n) in list(ops.items())[:top]:
+        print(f"  {ms:9.4f} ms {n:6.1f} x  {name[:100]}")
+    return total_ms, total_n
+
+
+def _kernel_ms(ops, kernel):
+    return sum(ms for name, (ms, _) in ops.items() if kernel in name)
+
+
+def split_int8(qdet, x, frame, precise_ms, conv7_grids, conv_s8_layers):
+    """Phase 7: the int8 forward on its kernel route against its im2col
+    route (launches counted, CUDA-event times, and each route's device
+    split by operation from ``torch.profiler``) and the f32 forward, the
+    quantized fast path's ``__call__``, precise f32 vs int8, conv7 per
+    pyramid grid and conv_s8 per timed layer, on one line.  Returns the
+    launch counts of one im2col-route forward."""
     import torch
 
     from tpupose_torch import quant as tq
@@ -836,6 +999,25 @@ def split_int8(qdet, x, frame, precise_ms, conv7_grids):
     im2col = tq.make_quant_apply(
         qdet.quant_static, tq.qtree_to_device(qdet.qtree, qdet.quant_static,
                                               "cuda"), "im2col")
+    with torch.no_grad(), float32_numerics():
+        routes, im2col_shapes = {}, None
+        for route, fn in (("kernel", qdet._quant_forward),
+                          ("im2col", im2col)):
+            _reset_counts()
+            fn(x)
+            torch.cuda.synchronize()
+            routes[route] = _read_counts()
+            im2col_shapes = _read_shapes()
+    print(f"launches per int8 forward: {routes}")
+    if (routes["kernel"]["conv_s8"], routes["kernel"]["conv7_s8"],
+            routes["kernel"]["requant_epilogue"]) != (30, 50, 0):
+        raise AssertionError(f"kernel route launches {routes['kernel']}")
+    # im2col: the 30 layers conv_s8 takes on the kernel route and the 50
+    # 7x7 layers each end in requant
+    if (routes["im2col"]["conv_s8"], routes["im2col"]["conv7_s8"],
+            routes["im2col"]["requant_epilogue"]) != (0, 0, 80):
+        raise AssertionError(f"im2col route launches {routes['im2col']}")
+    check_path_shapes("int8 forward, im2col route", qdet.cfg, im2col_shapes)
     # The host-clock and CUDA-event timings come before the profiler, which
     # may leave per-launch cost behind.
     call_ms = _host_ms(lambda: qdet(frame), 5)
@@ -844,16 +1026,25 @@ def split_int8(qdet, x, frame, precise_ms, conv7_grids):
                                       "kernel": lambda: qdet._quant_forward(
                                           x)}, iters=5)
         f32_ms = _cuda_ms(lambda: qdet.model(x), 5)
-        conv7_ms, conv7_n, device_ms = _conv7_in_forward(qdet, x)
-    print(f"conv7 inside the int8 forward (torch.profiler, mean of 3 "
-          f"forwards): "
-          f"{conv7_ms!r} ms in {conv7_n!r} launches; all kernels "
-          f"{device_ms!r} ms")
+        kernel_ops = _profile_forward(qdet._quant_forward, x)
+        im2col_ops = _profile_forward(im2col, x)
+    device_ms, device_n = _route_split("kernel", kernel_ops)
+    im2col_device_ms, im2col_n = _route_split("im2col", im2col_ops)
+    conv7_ms = _kernel_ms(kernel_ops, "conv7_s8_kernel")
+    conv_s8_ms = _kernel_ms(kernel_ops, "conv_s8_kernel")
+    if not (conv7_ms > 0 and conv_s8_ms > 0):
+        raise AssertionError("torch.profiler shows no device time for the "
+                             "conv7 or conv_s8 kernel")
     split = {
-        "int8_forward_conv7_kernel_ms": forward_ms["kernel"],
-        "int8_forward_conv7_im2col_ms": forward_ms["im2col"],
+        "int8_forward_kernel_route_ms": forward_ms["kernel"],
+        "int8_forward_im2col_route_ms": forward_ms["im2col"],
         "f32_forward_ms": f32_ms,
+        "kernel_route_device_ms": device_ms,
+        "kernel_route_launches": device_n,
         "conv7_in_int8_forward_ms": conv7_ms,
+        "conv_s8_in_int8_forward_ms": conv_s8_ms,
+        "im2col_route_device_ms": im2col_device_ms,
+        "im2col_route_launches": im2col_n,
         "int8_call_ms": call_ms,
         "precise_call_f32_ms": precise_ms[0],
         "precise_call_int8_ms": precise_ms[1],
@@ -861,9 +1052,14 @@ def split_int8(qdet, x, frame, precise_ms, conv7_grids):
     for (h, w), times in sorted(conv7_grids.items()):
         for name, ms in times.items():
             split[f"conv7_{h}x{w}_{name}_ms"] = ms
+    for layer, times in conv_s8_layers.items():
+        for name, ms in times.items():
+            if name != "tiles":
+                split[f"conv_s8_{layer}_{name}_ms"] = ms
     print(f"int8 split ({tuple(x.shape[1:3])} input, CUDA events except "
-          f"the __call__s on the host clock): "
-          + json.dumps({k: round(v, 4) for k, v in split.items()}))
+          f"the __call__s on the host clock and the profiler's device "
+          f"sums): " + json.dumps({k: round(v, 4) for k, v in split.items()}))
+    return routes["im2col"]
 
 
 def _start_resource_report(name):
@@ -923,11 +1119,14 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    report = _start_resource_report("conv7_s8")
-    libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "requant"])
+    reports = {name: _start_resource_report(name)
+               for name in ("conv7_s8", "conv_s8")}
+    libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "conv_s8",
+                                  "requant"])
     print(f"built {sorted(libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
-    _finish_resource_report("conv7_s8", *report)
+    for name, report in reports.items():
+        _finish_resource_report(name, *report)
 
     # Relaxed subset filter (as tests/test_golden_parity.py) so random
     # weights form persons; sizes are the defaults, 368 in / 320 maps.
@@ -941,9 +1140,11 @@ def main() -> int:
         0, 256, (3, 480, 640, 3)).astype(np.uint8)
     fast_launches, f32_det = run_slice(bn, cfg, frames)
     int8_kernels, conv7_grids = check_int8_kernels()
+    int8_kernels["conv_s8"], conv_s8_layers = check_conv_s8()
     quant_counts, qdet, x = run_quantized(f32_det, cfg, frames)
     precise_counts, precise_ms = run_precise(f32_det, cfg, frames)
-    split_int8(qdet, x, frames[0], precise_ms, conv7_grids)
+    im2col_counts = split_int8(qdet, x, frames[0], precise_ms, conv7_grids,
+                               conv_s8_layers)
 
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "cv2", "tpupose")]
@@ -953,6 +1154,9 @@ def main() -> int:
     launches = {name: quant_counts[name] + precise_counts[name]
                 for name in quant_counts}
     launches["blur_nms"] += fast_launches
+    # requant runs on the im2col route only: its launches are those of
+    # phase 7's im2col forward
+    launches["requant_epilogue"] = im2col_counts["requant_epilogue"]
     records = [
         ("blur_nms", "tpupose_torch/csrc/blur_nms.cu",
          "tpupose/ops/pallas/blur_nms.py:103",
@@ -962,15 +1166,22 @@ def main() -> int:
         ("requant_epilogue", "tpupose_torch/csrc/requant.cu",
          "tpupose/ops/pallas/requant.py:74",
          int8_kernels["requant_epilogue"]),
+        ("conv_s8", "tpupose_torch/csrc/conv_s8.cu",
+         "tpupose/ops/pallas/requant.py:74", int8_kernels["conv_s8"]),
     ]
-    # No single PyTorch call computes any of the three functions, so
-    # library_ms is null; conv7's yardstick, torch._int_mm on the prebuilt
-    # patch matrix, is printed per grid in phase 4.
-    print(json.dumps({"kernels": [{
+    fusions = {"conv_s8": "requant_epilogue fused into an s8 implicit GEMM "
+                          "for the 1x1 and 3x3 int8 layers (kernel route)",
+               "requant_epilogue": "standalone, after im2col + _int_mm "
+                                   "(im2col route)"}
+    # No single PyTorch call computes any of the four functions, so
+    # library_ms is null; the yardstick of conv7 and conv_s8, torch._int_mm
+    # on the prebuilt patch matrix, is printed per shape in phase 4.
+    print(json.dumps({"kernels": [dict({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
+        **({"fusion": fusions[name]} if name in fusions else {}))
         for name, source, replaces,
         (err, ms, plain_ms, (bound_ms, bound_by)) in records]}))
     print(json.dumps({"ok": True, "device": {

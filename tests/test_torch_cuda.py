@@ -19,6 +19,7 @@ from tpupose_torch.config import InferenceConfig
 from tpupose_torch.detectors.pose import PoseDetector
 from tpupose_torch.ops import blur_nms as bn
 from tpupose_torch.ops import conv7 as c7
+from tpupose_torch.ops import conv_s8 as cs
 from tpupose_torch.ops import requant as rq
 from tpupose_torch.utils.calibrate import calibrate_output_convs
 
@@ -176,6 +177,82 @@ def test_conv7_rejects_what_the_kernel_does_not_take(cuda_device):
                         torch.int32)])
 
 
+def _conv_s8_case(rng, b, h, w, c, o, k, device):
+    """Inputs over the input layer's [-128, 127]; the mult puts the
+    epilogue's values around [-60, 120], so every clip acts."""
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    acc_std = 74.0 * 73.0 * (k * k * c) ** 0.5
+    return (put(rng.randint(-128, 128, (b, h, w, c)).astype(np.int8)),
+            put(rng.randint(-127, 128, (k, k, c, o)).astype(np.int8)),
+            put((rng.uniform(0.5, 1.5, o) * 40.0 / acc_std).astype(
+                np.float32)),
+            put(rng.uniform(-20.0, 40.0, o).astype(np.float32)))
+
+
+# Every distinct conv_s8 layer of the fast int8 path at 368x496 (stem,
+# stage 1, Mconv6) as (B, H, W, C, O, k), and conv1_2 at the precise path's
+# largest canvas.
+CONV_S8_LAYERS = [
+    (1, 368, 496, 3, 64, 3), (1, 368, 496, 64, 64, 3),
+    (1, 184, 248, 64, 128, 3), (1, 184, 248, 128, 128, 3),
+    (1, 92, 124, 128, 256, 3), (1, 92, 124, 256, 256, 3),
+    (1, 46, 62, 256, 512, 3), (1, 46, 62, 512, 512, 3),
+    (1, 46, 62, 512, 256, 3), (1, 46, 62, 256, 128, 3),
+    (1, 46, 62, 128, 128, 3), (1, 46, 62, 128, 512, 1),
+    (1, 46, 62, 128, 128, 1), (2, 736, 984, 64, 64, 3)]
+
+
+@pytest.mark.parametrize("layer", CONV_S8_LAYERS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_s8_kernel_matches_reference(cuda_device, layer):
+    x, kq, mult, bias = _conv_s8_case(np.random.RandomState(sum(layer)),
+                                      *layer, cuda_device)
+    before = cs.conv_s8.launches
+    got = cs.conv_s8(x, kq, mult, bias)
+    ref = cs.conv_s8_reference(x, kq, mult, bias)
+    torch.cuda.synchronize()
+    assert cs.conv_s8.launches == before + 1
+    assert torch.equal(got, ref)
+    assert 0.2 < (ref > 0).float().mean().item() < 0.9
+
+
+@pytest.mark.parametrize("tile", range(len(cs.TILES)))
+@pytest.mark.parametrize("c, o, k", [(3, 64, 3), (64, 64, 3), (128, 128, 3),
+                                     (40, 64, 1), (128, 512, 1)])
+def test_conv_s8_kernel_every_tile_matches_reference(cuda_device, tile, c,
+                                                     o, k):
+    """Each block tile of the kernel on a grid that is a multiple of no
+    tile, at B = 2 and relu off; 40 channels stage as whole 16-byte chunks
+    zero-padded to 64."""
+    x, kq, mult, bias = _conv_s8_case(np.random.RandomState(tile), 2, 19,
+                                      37, c, o, k, cuda_device)
+    got = cs.conv_s8(x, kq, mult, bias, relu=False, tile=tile)
+    ref = cs.conv_s8_reference(x, kq, mult, bias, relu=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_conv_s8_rejects_what_the_kernel_does_not_take(cuda_device):
+    x, kq, mult, bias = _conv_s8_case(np.random.RandomState(0), 1, 8, 8,
+                                      64, 32, 3, cuda_device)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        cs.conv_s8(buf[1:].view(x.shape), kq, mult, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.conv_s8(x.transpose(1, 2), kq, mult, bias)
+    with pytest.raises(ValueError, match="tile"):
+        cs.conv_s8(x, kq, mult, bias, tile=len(cs.TILES))
+    with pytest.raises(ValueError, match="tile"):   # 64-channel tile, O 32
+        cs.conv_s8(x, kq, mult, bias, tile=4)
+    with pytest.raises(ValueError, match="packed"):
+        cs.conv_s8(x, kq, mult, bias,
+                   packed=cs.pack_conv_s8_weights(kq).view(torch.int32))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cs.conv_s8(x, kq[..., :24], mult[:24], bias[:24])
+
+
 @pytest.mark.parametrize("shape, groups, relu, lo", [
     ((1, 368, 496, 64), 1, True, 0.0), ((1, 184, 248, 64), 1, True, 0.0),
     ((2, 736, 984, 64), 1, True, 0.0), ((1, 46, 62, 128), 1, True, 0.0),
@@ -214,8 +291,9 @@ def test_int_mm_padding_is_exact(cuda_device, m, k, n):
 
 
 def test_int8_forward_on_the_card_equals_the_cpu(cuda_device):
-    """The whole int8 CocoPoseNet forward, kernel route on the card against
-    the plain route on the CPU, same tree: every stage's maps equal."""
+    """The whole int8 CocoPoseNet forward, kernel route on the card (every
+    int8 layer but the heads on conv7 or conv_s8) against the plain route on
+    the CPU, same tree: every stage's maps equal."""
     from tpupose_torch import quant as tq
 
     model = PoseDetector(device="cpu", seed=0).model
@@ -225,15 +303,16 @@ def test_int8_forward_on_the_card_equals_the_cpu(cuda_device):
     ranges = tq.calibrate_ranges(model, frames)
     qtree, static = tq.quantize("posenet", model, ranges)
     card = tq.make_quant_apply(static, tq.qtree_to_device(
-        qtree, static, cuda_device, pack_conv7=True), "kernel")
+        qtree, static, cuda_device, pack_kernels=True), "kernel")
     host = tq.make_quant_apply(static, tq.qtree_to_device(qtree, static,
                                                           "cpu"))
-    c7.conv7_s8.launches = rq.requant_epilogue.launches = 0
+    c7.conv7_s8.launches = cs.conv_s8.launches = 0
+    rq.requant_epilogue.launches = 0
     with torch.no_grad():
         pafs, hms = card(frames.to(cuda_device))
         torch.cuda.synchronize()
-        assert (c7.conv7_s8.launches, rq.requant_epilogue.launches) == (50,
-                                                                        30)
+        assert (c7.conv7_s8.launches, cs.conv_s8.launches,
+                rq.requant_epilogue.launches) == (50, 30, 0)
         cpafs, chms = host(frames)
     assert torch.equal(pafs.cpu(), cpafs)
     assert torch.equal(hms.cpu(), chms)

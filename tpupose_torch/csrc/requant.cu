@@ -4,9 +4,11 @@
 // with the max only when `relu` is set.
 //
 // Replaces the Pallas TPU kernel tpupose/ops/pallas/requant.py::
-// requant_epilogue.  In the port it is the epilogue of every non-7x7 int8
-// conv layer, which runs as im2col + torch._int_mm and leaves an int32
-// accumulator.  Semantics are those of tpupose_torch/ops/requant.py::
+// requant_epilogue on the im2col route (quantize(conv7_impl="im2col")):
+// there it is the epilogue of every int8 conv layer that is not a head,
+// which runs as im2col + torch._int_mm and leaves an int32 accumulator.  On
+// the kernel route the same epilogue is fused into csrc/conv_s8.cu and
+// csrc/conv7_s8.cu.  Semantics are those of tpupose_torch/ops/requant.py::
 // requant_epilogue_reference, bit for bit: each accumulator converts to
 // float32 with round-to-nearest, each product and sum rounds on its own in
 // the plain version's order (group 0, + group 1, ..., + bias), and
@@ -26,21 +28,21 @@ namespace {
 
 constexpr int kThreads = 256;
 
-struct Accs {
-  const int32_t* p[REQUANT_MAX_GROUPS];
+struct Groups {
+  const int32_t* acc[REQUANT_MAX_GROUPS];
+  const float* mult[REQUANT_MAX_GROUPS];
 };
 
 __global__ void __launch_bounds__(kThreads)
-requant_kernel(Accs accs, int G, const float* __restrict__ mult,
-               const float* __restrict__ bias, int8_t* __restrict__ out,
-               int n, int C, int relu, float lo) {
+requant_kernel(Groups groups, int G, const float* __restrict__ bias,
+               int8_t* __restrict__ out, int n, int C, int relu, float lo) {
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
        i += gridDim.x * kThreads) {
     const int c = i % C;
-    float y = __fmul_rn(__int2float_rn(accs.p[0][i]), mult[c]);
+    float y = __fmul_rn(__int2float_rn(groups.acc[0][i]), groups.mult[0][c]);
     for (int g = 1; g < G; ++g)
-      y = __fadd_rn(y, __fmul_rn(__int2float_rn(accs.p[g][i]),
-                                 mult[g * C + c]));
+      y = __fadd_rn(y, __fmul_rn(__int2float_rn(groups.acc[g][i]),
+                                 groups.mult[g][c]));
     y = __fadd_rn(y, bias[c]);
     if (relu) y = fmaxf(y, 0.0f);
     y = fminf(fmaxf(rintf(y), lo), 127.0f);
@@ -51,20 +53,23 @@ requant_kernel(Accs accs, int G, const float* __restrict__ mult,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// accs: G device pointers (host array) to n int32 each, channels last with C
-// channels; mult: (G, C) float32; bias: (C,) float32; out: n int8.
-extern "C" int requant_launch(const void* const* accs, int G,
-                              const float* mult, const float* bias,
-                              int8_t* out, int n, int C, int relu, float lo,
-                              void* stream) {
+// accs, mults: G device pointers each (host arrays), to n int32 (channels
+// last, C channels) and to (C,) float32; bias: (C,) float32; out: n int8.
+extern "C" int requant_launch(const void* const* accs,
+                              const void* const* mults, int G,
+                              const float* bias, int8_t* out, int n, int C,
+                              int relu, float lo, void* stream) {
   if (G < 1 || G > REQUANT_MAX_GROUPS || n <= 0 || C <= 0 || n % C != 0)
     return (int)cudaErrorInvalidValue;
-  Accs a = {};
-  for (int g = 0; g < G; ++g) a.p[g] = (const int32_t*)accs[g];
+  Groups groups = {};
+  for (int g = 0; g < G; ++g) {
+    groups.acc[g] = (const int32_t*)accs[g];
+    groups.mult[g] = (const float*)mults[g];
+  }
   int blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond that
   requant_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      a, G, mult, bias, out, n, C, relu, lo);
+      groups, G, bias, out, n, C, relu, lo);
   return (int)cudaGetLastError();
 }
 

@@ -172,11 +172,15 @@ class PoseDetector:
         activation ranges are taken over them (``tpupose_torch/quant.py``).
         Postprocess, geometry and APIs are unchanged.
 
-        ``conv7_impl``: the route of the 7x7 int8 layers, bit-equal either
-        way: ``"kernel"``, the fused CUDA kernel ``ops/conv7.py`` (CUDA
-        detectors only); ``"im2col"``, im2col + ``torch._int_mm`` as every
-        other layer.  Default: ``"kernel"`` on CUDA, ``"im2col"`` on the
-        CPU.
+        ``conv7_impl``: the route of the int8 layers that are not heads,
+        bit-equal either way (the name and values mirror the JAX package's
+        ``quantize(conv7_impl=...)``): ``"kernel"``, every one of them on a
+        hand-written CUDA kernel with the epilogue fused, ``ops/conv7.py``
+        for the 7x7 layers and ``ops/conv_s8.py`` for the 1x1 and 3x3 ones
+        (CUDA detectors only); ``"im2col"``, im2col + ``torch._int_mm`` +
+        the requantize epilogue ``ops/requant.py``.  The float32 heads run
+        as im2col + ``torch._int_mm`` either way.  Default: ``"kernel"`` on
+        CUDA, ``"im2col"`` on the CPU.
 
         ``min_side``: mixed precision; forwards whose network input's short
         side is below it keep the float32 model.  Default 0: every forward
@@ -206,7 +210,7 @@ class PoseDetector:
         self._quant_forward = make_quant_apply(
             self.quant_static,
             qtree_to_device(self.qtree, self.quant_static, self.device,
-                            pack_conv7=conv7_impl == "kernel"),
+                            pack_kernels=conv7_impl == "kernel"),
             conv7_impl)
         self.quantized = True
         self.conv7_impl = conv7_impl

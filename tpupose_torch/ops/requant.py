@@ -4,8 +4,10 @@ PyTorch version.
 Replaces the Pallas TPU kernel ``tpupose/ops/pallas/requant.py::
 requant_epilogue``, whose math is the epilogue of ``tpupose/quant.py::
 _qconv``: ``clip(round(max(sum_g acc_g * mult_g + bias, 0)), lo, 127)`` as
-int8.  The port's int8 forward runs every non-7x7 int8 layer as im2col +
-``torch._int_mm`` and finishes it here.  ``requant_epilogue`` routes by the
+int8.  On the int8 forward's im2col route (``conv7_impl="im2col"``) every
+int8 layer that is not a head runs as im2col + ``torch._int_mm`` and is
+finished here; on its kernel route the epilogue is fused into
+``ops/conv_s8.py`` and ``ops/conv7.py``.  ``requant_epilogue`` routes by the
 device of its inputs only: CPU tensors take ``requant_epilogue_reference``;
 CUDA tensors launch ``tpupose_torch/csrc/requant.cu`` or raise.
 """
@@ -74,22 +76,22 @@ def requant_epilogue(accs: Sequence[torch.Tensor],
                 f"on {acc.device}")
     for t in (*mults, bias):
         if (t.dtype != torch.float32 or tuple(t.shape) != (c,)
-                or t.device != dev):
+                or t.device != dev or not t.is_contiguous()):
             raise ValueError(f"requant_epilogue: mults and bias must be "
-                             f"float32 ({c},) on {dev}")
+                             f"contiguous float32 ({c},) on {dev}")
     n = accs[0].numel()
     if n >= 2**31:
         raise ValueError(f"requant_epilogue: {n} elements exceed int32")
-    mult = torch.stack(list(mults)).contiguous()
-    bias = bias.contiguous()
     out = torch.empty(shape, dtype=torch.int8, device=dev)
     lib = _library()
-    ptrs = (ctypes.c_void_p * len(accs))(*[a.data_ptr() for a in accs])
+    g = len(accs)
+    vp = ctypes.c_void_p
+    args = ((vp * g)(*[a.data_ptr() for a in accs]),
+            (vp * g)(*[m.data_ptr() for m in mults]), g, bias.data_ptr(),
+            out.data_ptr(), n, c, int(relu), float(lo))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.requant_launch(ptrs, len(accs), mult.data_ptr(),
-                                 bias.data_ptr(), out.data_ptr(), n, c,
-                                 int(relu), float(lo), stream)
+        err = lib.requant_launch(*args,
+                                 torch.cuda.current_stream().cuda_stream)
     _cuda_build.check(lib, "requant", err)
     requant_epilogue.launches += 1
     requant_epilogue.shapes[(shape, len(accs), bool(relu), float(lo))] += 1
@@ -104,7 +106,7 @@ requant_epilogue.shapes = collections.Counter()
 def _library() -> ctypes.CDLL:
     lib = _cuda_build.load("requant")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.requant_launch.argtypes = [ctypes.POINTER(ctypes.c_void_p), i, p, p,
-                                   p, i, i, i, ctypes.c_float, p]
+    lib.requant_launch.argtypes = [ctypes.POINTER(p), ctypes.POINTER(p), i,
+                                   p, p, i, i, i, ctypes.c_float, p]
     lib.requant_launch.restype = i
     return lib

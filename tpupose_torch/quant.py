@@ -13,12 +13,15 @@ The forward keeps activations as NHWC int8 tensors.  PyTorch has no int8
 convolution (on the CPU ``F.conv2d`` wraps int8 sums mod 256; on the card
 there is none), so every layer is an exact integer matmul:
 
-- 7x7 non-head layers with ``conv7_impl="kernel"``: the fused CUDA kernel
-  ``ops/conv7.py::conv7_s8`` (CUDA tensors only);
-- every other layer: im2col + ``torch._int_mm`` into int32, then the
-  requantize epilogue ``ops/requant.py::requant_epilogue`` (the CUDA kernel
-  on the card, its plain version on the CPU), or the float32 epilogue for
-  the heads.
+- with ``conv7_impl="kernel"`` every int8 layer that is not a head runs on
+  a hand-written CUDA kernel with the requantize epilogue fused: the 7x7
+  layers on ``ops/conv7.py::conv7_s8``, the 1x1 and 3x3 ones on
+  ``ops/conv_s8.py::conv_s8`` (on CPU tensors each runs its plain version);
+- with ``conv7_impl="im2col"`` they run as im2col + ``torch._int_mm`` into
+  int32, then the requantize epilogue ``ops/requant.py::requant_epilogue``
+  (the CUDA kernel on the card, its plain version on the CPU);
+- the heads (float32 out, 38 or 19 channels) always run as im2col +
+  ``torch._int_mm`` and the float32 epilogue.
 
 Routing is by the tensors' device only; no grid-size threshold applies.
 """
@@ -34,6 +37,7 @@ from torch import nn
 
 from tpupose_torch.ops.conv7 import (conv7_s8, im2col_acc_s8,
                                      pack_conv7_weights)
+from tpupose_torch.ops.conv_s8 import conv_s8, pack_conv_s8_weights
 from tpupose_torch.ops.requant import requant_epilogue, scaled_sum
 
 # ---------------------------------------------------------------------------
@@ -306,10 +310,11 @@ def quantize(arch: str, model: nn.Module, ranges: Dict[str, float],
 
 
 def qtree_to_device(qtree, static: QuantStatic, device,
-                    pack_conv7: bool = False):
-    """The numpy tree as tensors on ``device``.  ``pack_conv7`` adds each
-    7x7 non-head layer's kernels in the conv7 kernel's layout under
-    ``"conv7_packed"``.  Head scales become 1-element tensors, so the
+                    pack_kernels: bool = False):
+    """The numpy tree as tensors on ``device``.  ``pack_kernels`` adds
+    each non-head layer's kernels in its CUDA kernel's layout: the 7x7
+    layers' under ``"conv7_packed"``, the others' under
+    ``"conv_s8_packed"``.  Head scales become 1-element tensors, so the
     division in ``_quant_sym`` is a true division on every device."""
     device = torch.device(device)
 
@@ -323,9 +328,13 @@ def qtree_to_device(qtree, static: QuantStatic, device,
                "mult": tuple(t(m) for m in spec["mult"]),
                "bias_eff": t(spec["bias_eff"])}
         meta = static.layer_meta[path]
-        if pack_conv7 and meta["ksize"] == 7 and not meta["f32_out"]:
-            out["conv7_packed"] = tuple(pack_conv7_weights(k)
-                                        for k in kernels)
+        if pack_kernels and not meta["f32_out"]:
+            if meta["ksize"] == 7:
+                out["conv7_packed"] = tuple(pack_conv7_weights(k)
+                                            for k in kernels)
+            else:
+                (kernel,) = kernels
+                out["conv_s8_packed"] = pack_conv_s8_weights(kernel)
         qlayers[path] = out
     part_scales = {
         stage: tuple(t(np.asarray([a], np.float32)) for a in scales)
@@ -346,14 +355,20 @@ def _qconv(parts, spec, meta, conv7_impl: str = "im2col"):
     head) out.  Each group runs its own exact int32 accumulation; the
     epilogue combines them with the folded scales and bias in group order.
 
-    ``conv7_impl`` picks the 7x7 non-head layers' route: ``"kernel"``, the
-    fused CUDA kernel (CUDA tensors only: on CPU tensors it runs its plain
-    version); ``"im2col"``, the same im2col route as every other layer.
-    Both are bit-equal."""
-    if conv7_impl == "kernel" and meta["ksize"] == 7 and not meta["f32_out"]:
-        return conv7_s8(parts, spec["kernel_q"], spec["mult"],
-                        spec["bias_eff"], relu=meta["relu"],
-                        packed=spec.get("conv7_packed"))
+    ``conv7_impl`` picks the non-head layers' route: ``"kernel"``, the
+    fused CUDA kernels, ``conv7_s8`` for the 7x7 layers and ``conv_s8``
+    (one input group) for the 1x1 and 3x3 ones (on CPU tensors each runs
+    its plain version); ``"im2col"``, im2col + ``torch._int_mm`` + the
+    requantize epilogue.  Both are bit-equal.  The heads run as im2col +
+    ``torch._int_mm`` + the float32 epilogue on either route."""
+    if conv7_impl == "kernel" and not meta["f32_out"]:
+        if meta["ksize"] == 7:
+            return conv7_s8(parts, spec["kernel_q"], spec["mult"],
+                            spec["bias_eff"], relu=meta["relu"],
+                            packed=spec.get("conv7_packed"))
+        (x,), (kernel,), (mult,) = parts, spec["kernel_q"], spec["mult"]
+        return conv_s8(x, kernel, mult, spec["bias_eff"], relu=meta["relu"],
+                       packed=spec.get("conv_s8_packed"))
     accs = [im2col_acc_s8(xq, kq)
             for xq, kq in zip(parts, spec["kernel_q"])]
     if meta["f32_out"]:
