@@ -8,14 +8,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. Print the card (``nvidia-smi`` name and power limit) and build the four
    CUDA kernels from ``tpupose_torch/csrc/`` (``blur_nms.cu``,
    ``conv7_s8.cu``, ``conv_s8.cu``, ``requant.cu``), one ``nvcc`` per
-   source, in parallel, beside ``nvcc -Xptxas -v`` on ``conv7_s8.cu`` and
-   ``conv_s8.cu`` (registers, shared memory and spills of each of their
-   kernels, printed).
+   source, in parallel, beside ``nvcc -Xptxas -v`` on ``blur_nms.cu``,
+   ``conv7_s8.cu`` and ``conv_s8.cu`` (registers, shared memory and spills
+   of each of their kernels, printed).
 2. Hold the blur+NMS kernel against its plain PyTorch version on the card at
    the fast path's map shape (18, 320, 432), the precise path's
    (18, 480, 640), a planted-peak map (18, 46, 62), a map smaller than the
-   blur radius (3, 7, 9) and a large one (18, 584, 584): masks equal and
-   smoothed maps bit-equal.  Time both with CUDA events.
+   blur radius (3, 7, 9), a large one (18, 584, 584), a ragged one
+   (18, 321, 433), thin ones (2, 5, 300) and (2, 300, 5) and a batch of 8
+   frames' maps (144, 320, 432): masks equal and smoothed maps bit-equal.
+   At (18, 320, 432) and (18, 480, 640), time the kernel from CUDA-graph
+   replays in turns with its plain version, beside its two floors (bytes,
+   and float32 instructions at the non-FMA rate); at (18, 320, 432) also
+   the wrapper's host enqueue time per call.
 3. Drive the f32 fast path: ``PoseDetector`` with the full 6-stage
    CocoPoseNet at the default 368/320 sizes, seeded random weights
    calibrated so the maps carry peaks, three seeded 480x640 frames through
@@ -60,7 +65,8 @@ counters).
    by operation (``torch.profiler``: the costliest operations by name,
    launches per forward); f32 against int8 precise ``__call__``; conv7
    per pyramid grid and conv_s8 per timed layer against their plain
-   versions.
+   versions; last, the blur+NMS kernel's device time inside one fast-path
+   postprocess (``torch.profiler``).
 
 The last two lines are the kernels' JSON record (each kernel's time, plain
 time, bound and launches on the driven paths; requant's launches are those
@@ -121,6 +127,21 @@ def _graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / (5 * iters)
 
 
+def _enqueue_ms(fn, calls: int) -> float:
+    """Mean host milliseconds to enqueue one call of ``fn``: the host clock
+    over ``calls`` calls with no synchronize between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
 def _host_ms(fn, iters: int) -> float:
     """Median host milliseconds of ``fn`` ending in a synchronize."""
     import torch
@@ -147,18 +168,28 @@ def _planted(rng, j, h, w):
     return hm
 
 
+# blur_nms: the shapes it is held bit-equal at (the fast path's and the
+# precise path's maps, a planted-peak map, a map smaller than the radius, a
+# large one, a ragged one, thin ones and a batch of 8 frames' maps), and
+# the two it is timed at.
+BLUR_NMS_SHAPES = [(18, 320, 432), (18, 480, 640), (18, 46, 62), (3, 7, 9),
+                   (18, 584, 584), (18, 321, 433), (2, 5, 300), (2, 300, 5),
+                   (144, 320, 432)]
+BLUR_NMS_TIMED = ((18, 320, 432), (18, 480, 640))
+
+
 def check_kernel(bn, cfg):
-    """Phase 2; returns (max_abs_err over shapes, kernel ms, plain ms) at
-    the fast path's map shape."""
+    """Phase 2; returns (max_abs_err over shapes, {timed shape: ms by name:
+    "kernel" and "plain" in turns, "eager", "bytes" and "operations"
+    floors})."""
     import numpy as np
     import torch
 
     sigma, thresh = cfg.gaussian_sigma, cfg.heatmap_peak_thresh
     rng = np.random.RandomState(0)
     worst = 0.0
-    times = None
-    for shape in [(18, 320, 432), (18, 480, 640), (18, 46, 62), (3, 7, 9),
-                  (18, 584, 584)]:
+    times = {}
+    for shape in BLUR_NMS_SHAPES:
         x = torch.from_numpy(_planted(rng, *shape)).cuda()
         s, m = bn.blur_nms(x, sigma, thresh)
         rs, rm = bn.blur_nms_reference(x, sigma, thresh)
@@ -171,17 +202,62 @@ def check_kernel(bn, cfg):
               f"max_ulps={ulps} peaks={int(rm.sum())}")
         if not (torch.equal(m, rm) and torch.equal(s, rs)):
             raise AssertionError(f"blur_nms kernel disagrees at {shape}")
+        if shape not in BLUR_NMS_TIMED:
+            continue
+
+        def kernel():
+            bn.blur_nms(x, sigma, thresh)
+
+        # The plain version copies its mirror index from the host on every
+        # call, so CUDA events time it, not a CUDA graph.
+        kernel_ms, plain_ms = [], []
+        for order in ("plain", "kernel", "kernel", "plain"):
+            if order == "kernel":
+                kernel_ms.append(_graph_ms(kernel, 20))
+            else:
+                plain_ms.append(_cuda_ms(
+                    lambda: bn.blur_nms_reference(x, sigma, thresh), 10))
+        times[shape] = dict(kernel=statistics.mean(kernel_ms),
+                            plain=statistics.mean(plain_ms),
+                            eager=_cuda_ms(kernel, 50),
+                            **blur_nms_floors(*shape))
+        print(f"blur_nms {shape}: " + ", ".join(
+            f"{k} {v!r} ms" for k, v in times[shape].items())
+            + " (kernel: CUDA-graph replays of 20 calls, plain: CUDA events "
+            "over 10 calls, in turns; eager: the kernel launched 50 times "
+            "by CUDA events; floors: bytes over the memory rate, "
+            "instructions over the non-FMA float32 rate)")
         if shape == (18, 320, 432):
-            kernel, plain = [], []
-            for order in ("plain", "kernel", "kernel", "plain"):
-                fn = (bn.blur_nms if order == "kernel"
-                      else bn.blur_nms_reference)
-                ms = _cuda_ms(lambda: fn(x, sigma, thresh), iters=50)
-                (kernel if order == "kernel" else plain).append(ms)
-            times = (statistics.mean(kernel), statistics.mean(plain))
-            print(f"blur_nms (18, 320, 432): kernel {times[0]!r} ms, "
-                  f"plain {times[1]!r} ms (CUDA events, mean of 2x50)")
-    return worst, times[0], times[1]
+            enqueue = _enqueue_ms(kernel, 1000)
+            print(f"blur_nms wrapper host enqueue at {shape}: {enqueue!r} ms "
+                  f"per call (host clock over 1000 calls, no synchronize)")
+    return worst, times
+
+
+def profile_blur_nms(det, cfg, frame):
+    """The blur_nms kernel's device time and launches inside one fast-path
+    postprocess of ``det``'s maps of ``frame`` (``torch.profiler``, mean of
+    3); fails if the profiler shows none."""
+    import torch
+
+    from tpupose_torch.ops.postprocess import postprocess_pose
+
+    (paf, hm), _ = det.compute_maps(frame)
+    with torch.no_grad():
+        ops = _profile_forward(
+            lambda _: postprocess_pose(paf, hm, paf.shape[-1], cfg), None)
+    kernel = {name: v for name, v in ops.items() if "blur_nms_kernel" in name}
+    if not kernel:
+        raise AssertionError("torch.profiler shows no blur_nms kernel in the "
+                             "postprocess")
+    ms = sum(v[0] for v in kernel.values())
+    launches = sum(v[1] for v in kernel.values())
+    print(f"blur_nms inside one fast-path postprocess ({tuple(hm.shape)} "
+          f"maps): {ms!r} ms of device time in {launches!r} launches "
+          f"(torch.profiler, mean of 3); the postprocess's kernels "
+          f"{sum(v[0] for v in ops.values())!r} ms in "
+          f"{sum(v[1] for v in ops.values())!r} launches")
+    return ms
 
 
 def _same_tables(a, b, score_atol):
@@ -334,10 +410,13 @@ def _round_robin_ms(fns, iters: int, timer=None):
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
 # HBM bytes/s, int8 tensor-core ops/s, float32 ops/s outside the tensor
-# cores.
+# cores (an FMA counted as two).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+# float32 instructions that do not fuse (FMUL, FADD, FSETP) at one per lane
+# per cycle: 132 SMs x 128 lanes x 1.98 GHz, half of F32_OPS_PER_S.
+F32_NONFMA_OPS_PER_S = 33.5e12
 
 
 def _bound(n_bytes, ops, peak_ops):
@@ -358,12 +437,21 @@ def conv7_bound(b, h, w, channels, o):
     return _bound(n_bytes, 2 * b * h * w * o * 49 * c, INT8_OPS_PER_S)
 
 
+def blur_nms_floors(j, h, w):
+    """blur_nms's two floors, ms: float32 maps in, float32 maps and an int8
+    mask out, over the memory rate; and per pixel 2 x 21 multiplies, 2 x 20
+    adds and 5 comparisons (sigma 2.5: 21 taps), which bit-equality keeps
+    from fusing, over the non-FMA float32 rate."""
+    n, taps = j * h * w, 21
+    return {"bytes": n * (4 + 4 + 1) / HBM_BYTES_PER_S * 1e3,
+            "operations": n * (2 * taps + 2 * (taps - 1) + 5)
+            / F32_NONFMA_OPS_PER_S * 1e3}
+
+
 def blur_nms_bound(j, h, w):
-    """blur_nms's bound: float32 maps in, float32 maps and an int8 mask
-    out; 21 multiply-adds in each of two passes and 5 comparisons per
-    pixel."""
-    n = j * h * w
-    return _bound(n * (4 + 4 + 1), n * (2 * 21 * 2 + 5), F32_OPS_PER_S)
+    """blur_nms's bound: the larger of its two floors."""
+    by, ms = max(blur_nms_floors(j, h, w).items(), key=lambda kv: kv[1])
+    return ms, by
 
 
 def requant_bound(shape, groups):
@@ -1120,7 +1208,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     reports = {name: _start_resource_report(name)
-               for name in ("conv7_s8", "conv_s8")}
+               for name in ("blur_nms", "conv7_s8", "conv_s8")}
     libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "conv_s8",
                                   "requant"])
     print(f"built {sorted(libs.values())} in "
@@ -1133,7 +1221,7 @@ def main() -> int:
     cfg = dataclasses.replace(INFERENCE, max_subsets=128,
                               n_subset_limbs_thresh=2,
                               subset_score_thresh=0.05)
-    blur_err, blur_ms, blur_plain_ms = check_kernel(bn, cfg)
+    blur_err, blur_times = check_kernel(bn, cfg)
     import numpy as np
 
     frames = np.random.RandomState(0).randint(
@@ -1145,6 +1233,7 @@ def main() -> int:
     precise_counts, precise_ms = run_precise(f32_det, cfg, frames)
     im2col_counts = split_int8(qdet, x, frames[0], precise_ms, conv7_grids,
                                conv_s8_layers)
+    profile_blur_nms(f32_det, cfg, frames[0])
 
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "cv2", "tpupose")]
@@ -1160,7 +1249,8 @@ def main() -> int:
     records = [
         ("blur_nms", "tpupose_torch/csrc/blur_nms.cu",
          "tpupose/ops/pallas/blur_nms.py:103",
-         (blur_err, blur_ms, blur_plain_ms, blur_nms_bound(18, 320, 432))),
+         (blur_err, blur_times[(18, 320, 432)]["kernel"],
+          blur_times[(18, 320, 432)]["plain"], blur_nms_bound(18, 320, 432))),
         ("conv7_s8", "tpupose_torch/csrc/conv7_s8.cu",
          "tpupose/ops/pallas/conv7.py:116", int8_kernels["conv7_s8"]),
         ("requant_epilogue", "tpupose_torch/csrc/requant.cu",

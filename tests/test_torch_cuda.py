@@ -43,7 +43,9 @@ def _planted(rng, j, h, w):
 
 
 @pytest.mark.parametrize("shape", [(18, 320, 432), (18, 480, 640),
-                                   (18, 46, 62), (3, 7, 9), (18, 584, 584)])
+                                   (18, 46, 62), (3, 7, 9), (18, 584, 584),
+                                   (18, 321, 433), (2, 5, 300), (2, 300, 5),
+                                   (144, 320, 432)])
 def test_blur_nms_kernel_matches_reference(cuda_device, shape):
     x = torch.from_numpy(_planted(np.random.RandomState(5), *shape)).to(
         cuda_device)

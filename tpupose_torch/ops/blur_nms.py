@@ -66,8 +66,7 @@ def blur_nms(heatmaps: torch.Tensor, sigma: float, thresh: float
                          f"{heatmaps.dtype} {tuple(heatmaps.shape)}")
     if not heatmaps.is_contiguous():
         raise ValueError("blur_nms: input must be contiguous")
-    taps = scipy_gaussian_kernel_1d(sigma)
-    radius = (len(taps) - 1) // 2
+    c_taps, radius = _taps(float(sigma))
     if radius > MAX_RADIUS:
         raise ValueError(f"blur_nms: sigma {sigma} needs radius {radius} > "
                          f"{MAX_RADIUS}")
@@ -76,12 +75,15 @@ def blur_nms(heatmaps: torch.Tensor, sigma: float, thresh: float
     mask = torch.empty(heatmaps.shape, dtype=torch.bool,
                        device=heatmaps.device)
     lib = _library()
-    c_taps = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
-    with torch.cuda.device(heatmaps.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.blur_nms_launch(
-            heatmaps.data_ptr(), smoothed.data_ptr(), mask.data_ptr(),
-            j, h, w, c_taps, radius, float(thresh), stream)
+    index = heatmaps.device.index
+    args = (heatmaps.data_ptr(), smoothed.data_ptr(), mask.data_ptr(), j, h,
+            w, c_taps, radius, float(thresh))
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        err = lib.blur_nms_launch(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = lib.blur_nms_launch(*args, stream)
     _cuda_build.check(lib, "blur_nms", err)
     blur_nms.launches += 1
     blur_nms.shapes[(j, h, w)] += 1
@@ -90,6 +92,15 @@ def blur_nms(heatmaps: torch.Tensor, sigma: float, thresh: float
 
 blur_nms.launches = 0
 blur_nms.shapes = collections.Counter()
+
+
+@functools.lru_cache(maxsize=8)
+def _taps(sigma: float) -> Tuple[ctypes.Array, int]:
+    """The kernel's taps for ``sigma`` as a ctypes float array, and the
+    radius; built once per sigma (the launch copies them)."""
+    taps = scipy_gaussian_kernel_1d(sigma)
+    return (ctypes.c_float * len(taps))(*[float(t) for t in taps]), \
+        (len(taps) - 1) // 2
 
 
 @functools.lru_cache(maxsize=1)
