@@ -54,7 +54,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    50 conv7 ones and no requant, and, per pyramid scale, the card's int8
    maps bit-equal to the CPU's int8 forward on the same tree.
 
-After each driven path (3, 5, 6 and phase 7's im2col forward), every
+After each driven path (3, 5, 6, 8 and phase 7's im2col forward), every
 kernel is held against its plain version, bit-equal, on seeded random
 inputs at every shape the path gave it (the wrappers' ``shapes``
 counters).
@@ -67,11 +67,35 @@ counters).
    per pyramid grid and conv_s8 per timed layer against their plain
    versions; last, the blur+NMS kernel's device time inside one fast-path
    postprocess (``torch.profiler``).
+8. Drive the crop nets: ``FaceDetector`` and ``HandDetector`` (full
+   FaceNet / HandNet, 368x368 crops, seeded weights with the last output
+   conv scaled so keypoints clear the threshold) behind
+   ``apps/demo.py::cascade_results`` on the three frames with the fast f32
+   pose detector; up to 8 faces and 8 hands of the cascade (topped up from
+   fixed boxes to 2 faces, 2 left and 2 right hands) through
+   ``detect_batch``, f32, then int8 after ``quantize`` on those crops.
+   Checks 25 conv7, 21 conv_s8 and no requant launches per int8 crop
+   forward, conv7 at groups (71, 128) and (22, 128), every kernel at every
+   shape the path gave it, and, on the fixed boxes' 2 faces and a left
+   and a right hand (the random poses cut crops of 550-1700 px, too large
+   for the CPU's tails), the card's maps against a CPU twin's (f32 within
+   1e-4 x max|ref|, int8 bit-equal) and its keypoints equal to the twin's
+   (a channel whose two maxima lie within the tolerance is excused and
+   counted).  Then conv7 at (1 and 8,
+   46, 46) with the crop nets' groups and conv_s8 at conv4_3 and
+   conv5_3_CPM, every tile, bit-equal; conv7 timed there beside its plain
+   version, ``_int_mm`` and bound; blur_nms at sigma 5 and 8 (radius 20
+   and 32: the run-time-tap kernel) bit-equal, radius 20 timed beside 10;
+   ``greedy_match``'s planted ties, card against CPU; 1x1, 16x9 and 9x16
+   frames give (0, 18, 3) tables on the fast, precise and int8 paths.
+   Phase 6 also checks ``detect_precise`` against ``__call__``.  Prints
+   the crop forwards' times (CUDA events, B = 1 and 8) and
+   ``detect_batch``'s host time per crop.
 
 The last two lines are the kernels' JSON record (each kernel's time, plain
-time, bound and launches on the driven paths; requant's launches are those
-of phase 7's im2col forward, the only route that runs it) and the result
-line.
+time, bound and launches on the driven paths, the crop nets' included;
+requant's launches are those of phase 7's im2col forward, the only route
+that runs it) and the result line.
 """
 
 from __future__ import annotations
@@ -437,12 +461,12 @@ def conv7_bound(b, h, w, channels, o):
     return _bound(n_bytes, 2 * b * h * w * o * 49 * c, INT8_OPS_PER_S)
 
 
-def blur_nms_floors(j, h, w):
+def blur_nms_floors(j, h, w, taps=21):
     """blur_nms's two floors, ms: float32 maps in, float32 maps and an int8
-    mask out, over the memory rate; and per pixel 2 x 21 multiplies, 2 x 20
-    adds and 5 comparisons (sigma 2.5: 21 taps), which bit-equality keeps
-    from fusing, over the non-FMA float32 rate."""
-    n, taps = j * h * w, 21
+    mask out, over the memory rate; and per pixel 2 x taps multiplies,
+    2 x (taps - 1) adds and 5 comparisons (sigma 2.5: 21 taps), which
+    bit-equality keeps from fusing, over the non-FMA float32 rate."""
+    n = j * h * w
     return {"bytes": n * (4 + 4 + 1) / HBM_BYTES_PER_S * 1e3,
             "operations": n * (2 * taps + 2 * (taps - 1) + 5)
             / F32_NONFMA_OPS_PER_S * 1e3}
@@ -907,6 +931,7 @@ def run_quantized(f32_det, cfg, frames):
 def run_precise(f32_det, cfg, frames):
     """Phase 6 on two frames; returns the launch counts over both precise
     detectors and ``(f32 ms, int8 ms)`` per ``__call__``."""
+    import numpy as np
     import torch
 
     from tpupose_torch.detectors.pose import PoseDetector
@@ -985,6 +1010,13 @@ def run_precise(f32_det, cfg, frames):
                 raise AssertionError(f"precise {label} frame {i}: "
                                      f"__call__ != detect_batch")
         check_path_shapes(f"precise {label} path", cfg, shapes)
+        via_detect_precise = det.detect_precise(frames[0])
+        if not all(np.array_equal(a, b) for a, b in zip(via_detect_precise,
+                                                          singles[0])):
+            raise AssertionError(f"precise {label}: detect_precise != "
+                                 f"__call__")
+        print(f"precise {label}: detect_precise equals __call__ "
+              f"({len(singles[0][0])} poses)")
         if quantized:
             _precise_int8_vs_cpu(det, frames[0])
         call_ms.append(_host_ms(lambda: det(frames[0]), 3))
@@ -1150,6 +1182,431 @@ def split_int8(qdet, x, frame, precise_ms, conv7_grids, conv_s8_layers):
     return routes["im2col"]
 
 
+# Phase 8: the crop nets.  Boxes (left, top, right, bottom) of the 480x640
+# frames that stand in for the cascade's crops when the random pose net
+# cuts fewer than 2 faces or 4 hands.
+FIXED_FACE_BOXES = ((280, 60, 380, 180), (40, 200, 124, 300))
+FIXED_HAND_BOXES = (((100, 300, 180, 380), "left"),
+                    ((460, 280, 552, 372), "right"),
+                    ((300, 380, 356, 436), "left"),
+                    ((520, 40, 640, 160), "right"))
+MAX_CASCADE_CROPS = 8       # crops per net taken from the cascade
+# conv7's refine-stage groups in the crop nets: FaceNet's and HandNet's
+# Mconv1, then Mconv2-5; conv_s8's layers the pose net has not: conv4_3
+# (conv4_4, conv5_1, conv5_2 alike) and conv5_3_CPM.
+CROP_GRID = (46, 46)         # the crop nets' stage grid at 368x368
+CROP_CONV7_GROUPS = ((71, 128), (22, 128), (128,))
+CROP_CONV_S8 = {"conv4_3": (512, 512, 3), "conv5_3_CPM": (512, 128, 3)}
+
+
+def _cpu_twin(det):
+    """A crop detector's CPU twin on the same weights, and on the same int8
+    tree (im2col route) once quantized."""
+    import copy
+
+    import torch
+
+    from tpupose_torch import quant as tq
+
+    twin = copy.copy(det)
+    twin.device = torch.device("cpu")
+    twin.model = copy.deepcopy(det.model).cpu()
+    if det.quantized:
+        twin._quant_forward = tq.make_quant_apply(
+            det.quant_static, tq.qtree_to_device(det.qtree, det.quant_static,
+                                                 "cpu"))
+    return twin
+
+
+def _crop_keypoints_vs_cpu(label, det, crops, flips, rel_tol):
+    """``det``'s keypoints on the card against its CPU twin's on the same
+    crops; its maps (every stage) within ``rel_tol`` x max|ref| of the
+    twin's (0: bit-equal).  A channel whose keypoint differs is excused
+    only where its two maxima, or its score and the threshold, lie within
+    twice the map tolerance of each other on the twin's blurred map.
+    Returns (card keypoints, channels excused)."""
+    import torch
+
+    from tpupose_torch.ops.gaussian import gaussian_blur_reflect
+
+    twin = _cpu_twin(det)
+    imgs = det.prepare_crops(crops, flips)
+    got_maps, ref_maps = det.forward_maps(imgs), twin.forward_maps(imgs)
+    hws = [c.shape[:2] for c in crops]
+    scale = ref_maps.abs().max().item()
+    err = (got_maps.cpu() - ref_maps).abs().max().item()
+    print(f"{label}: maps {tuple(ref_maps.shape)} card vs CPU max_abs_err "
+          f"{err!r} (max |ref| {scale!r})")
+    if not err <= rel_tol * scale:
+        raise AssertionError(f"{label}: card and CPU maps disagree")
+    # int8 maps are equal; the tails' float32 resizes and blurs still
+    # differ by ~1e-7 between the devices
+    tol = 2 * max(rel_tol, 1e-5) * scale
+    got = det.collect_crops(det.submit_tails(got_maps[-1], hws, flips))
+    ref = twin.collect_crops(twin.submit_tails(ref_maps[-1], hws, flips))
+    excused = valid = 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        target, _ = twin._tail_target(crops[i].shape[:2])
+        smoothed = None
+        for c, (gk, rk) in enumerate(zip(g, r)):
+            valid += rk is not None
+            same = (gk is None) == (rk is None) and (
+                rk is None or (gk[:2] == rk[:2]
+                               and abs(gk[2] - rk[2]) <= tol))
+            if same:
+                continue
+            if smoothed is None:
+                with torch.no_grad():
+                    smoothed = gaussian_blur_reflect(twin.tail_maps(
+                        ref_maps[-1][i], target, flips[i]),
+                        twin.cfg.gaussian_sigma)
+            plane = smoothed[c]
+            best = plane.max().item()
+            if gk is not None and rk is not None:
+                near = best - plane[gk[1], gk[0]].item() <= tol
+            else:
+                near = abs(best - twin.cfg.heatmap_peak_thresh) <= tol
+            if not near:
+                raise AssertionError(f"{label}: crop {i} channel {c}: card "
+                                     f"{gk} vs CPU {rk}")
+            excused += 1
+    print(f"{label}: keypoints card vs CPU equal on {len(crops)} crops "
+          f"({valid} valid), {excused} channels excused (two maxima or "
+          f"score and threshold within {tol!r})")
+    if valid == 0:
+        raise AssertionError(f"{label}: no valid keypoint")
+    return got, excused
+
+
+def _crop_sets(frames, cascade_faces, cascade_hands):
+    """The crops phase 8 runs: up to MAX_CASCADE_CROPS faces and hands of
+    the cascade, topped up from the fixed boxes where it cut fewer than 2
+    faces, or fewer than 2 left or 2 right hands."""
+    faces = list(cascade_faces[:MAX_CASCADE_CROPS])
+    hands = list(cascade_hands[:MAX_CASCADE_CROPS])
+    n_face, n_hand = len(faces), len(hands)
+    if len(faces) < 2:
+        faces += [frames[0][t:b, l:r].copy()
+                  for l, t, r, b in FIXED_FACE_BOXES]
+    if min(sum(s == side for _, s in hands) for side in ("left",
+                                                          "right")) < 2:
+        hands += [(frames[1][t:b, l:r].copy(), side)
+                  for (l, t, r, b), side in FIXED_HAND_BOXES]
+    sizes = [c.shape[:2] for c in faces + [h for h, _ in hands]]
+    print(f"crop sets: {len(faces)} faces ({n_face} from the cascade of "
+          f"{len(cascade_faces)}, {len(faces) - n_face} from fixed boxes), "
+          f"{len(hands)} hands ({n_hand} from the cascade of "
+          f"{len(cascade_hands)}, {len(hands) - n_hand} from fixed boxes; "
+          f"{sum(s == 'left' for _, s in hands)} left); crop sizes from "
+          f"{min(sizes, key=lambda hw: hw[0] * hw[1])} to "
+          f"{max(sizes, key=lambda hw: hw[0] * hw[1])}")
+    return faces, hands
+
+
+def run_crop_nets(f32_det, cfg, frames):
+    """Phase 8: the face and hand detectors behind the demo cascade, f32
+    and int8.  Returns the kernel launches counted over its main path."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.apps.demo import cascade_results
+    from tpupose_torch.detectors import FaceDetector, HandDetector
+    from tpupose_torch.detectors.crop_keypoints import preprocess_crops_u8
+    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.utils.calibrate import calibrate_crop_output_conv
+
+    t_phase = t0 = time.perf_counter()
+    face = FaceDetector(device="cuda", seed=0)
+    hand = HandDetector(device="cuda", seed=0)
+    calib = [frames[2][t:b, l:r] for l, t, r, b in FIXED_FACE_BOXES]
+    calibrate_crop_output_conv(face, calib)
+    calibrate_crop_output_conv(hand, calib)
+    torch.cuda.synchronize()
+    print(f"face + hand detectors: init + output calibration "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # --- the main path, counted: the cascade, then f32 and int8 crops ---
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    cascade_faces, cascade_hands, n_people, seen = [], [], [], []
+    t0 = time.perf_counter()
+    for f in frames:
+        results = cascade_results(f, f32_det, face, hand,
+                                  on_crops=lambda *crops: seen.append(crops))
+        face_crops, hand_crops = seen[-1]
+        n_people.append(len(results["poses"]))
+        cascade_faces += face_crops
+        cascade_hands += [(crop, side) for crop, (side, _, _) in zip(
+            hand_crops, results["hands"])]
+    cascade_s = time.perf_counter() - t0
+    faces, hands = _crop_sets(frames, cascade_faces, cascade_hands)
+    hand_imgs = [c for c, _ in hands]
+    sides = [s for _, s in hands]
+    f32_face = face.detect_batch(faces)
+    f32_hand = hand.detect_batch(hand_imgs, sides)
+    face.quantize([c for f in faces[:4] for c in (f, f[:, ::-1])])
+    hand.quantize([c for h in hand_imgs[:4] for c in (h, h[:, ::-1])])
+    if (face.conv7_impl, hand.conv7_impl) != ("kernel", "kernel"):
+        raise AssertionError("crop quantize() did not take the kernel route")
+    before = _read_counts()
+    int8_face = face.detect_batch(faces)
+    after_face = _read_counts()
+    int8_hand = hand.detect_batch(hand_imgs, sides)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    shapes = _read_shapes()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    per_face = {k: after_face[k] - before[k] for k in counts}
+    per_hand = {k: counts[k] - after_face[k] for k in counts}
+    print(f"crop path: cascade on {len(frames)} frames {cascade_s:.2f} s, "
+          f"people {n_people}; launches {counts}; one int8 face forward "
+          f"{per_face}, one int8 hand forward {per_hand}; conv7 shapes "
+          f"{sorted(shapes['conv7_s8'])}; peak device memory "
+          f"{peak_mib:.1f} MiB")
+    for label, per in (("face", per_face), ("hand", per_hand)):
+        if (per["conv7_s8"], per["conv_s8"], per["requant_epilogue"]) != (
+                25, 21, 0):
+            raise AssertionError(f"int8 {label} forward launches {per}, not "
+                                 f"25 conv7 and 21 conv_s8")
+    if counts["blur_nms"] < len(frames):
+        raise AssertionError(f"the cascade's pose steps launched blur_nms "
+                             f"{counts['blur_nms']} times")
+    groups = {key[3] for key in shapes["conv7_s8"]}
+    if not {(71, 128), (22, 128), (128,)} <= groups:
+        raise AssertionError(f"conv7 ran at groups {groups}")
+    for label, kps, n in (("f32 face", f32_face, 71), ("int8 face",
+                                                        int8_face, 71),
+                          ("f32 hand", f32_hand, 22),
+                          ("int8 hand", int8_hand, 22)):
+        if len(kps) != (len(faces) if "face" in label else len(hands)) or \
+                any(len(k) != n - 1 for k in kps):
+            raise AssertionError(f"{label}: keypoint lists malformed")
+    check_path_shapes("crop path", cfg, shapes)
+
+    # --- card vs CPU on the fixed boxes' 2 faces and a left and a right
+    # hand: face-sized crops (the random poses cut crops of 550-1700 px,
+    # whose tails take the CPU seconds each) ---
+    sub_faces = [frames[0][t:b, l:r].copy() for l, t, r, b in
+                 FIXED_FACE_BOXES]
+    sub_hands = [(frames[1][t:b, l:r].copy(), side)
+                 for (l, t, r, b), side in FIXED_HAND_BOXES[:2]]
+    t_cpu = time.perf_counter()
+    sub_flips = [s == "left" for _, s in sub_hands]
+    sub_hand_imgs = [c for c, _ in sub_hands]
+    excused = 0
+    for quantized in (True, False):
+        for det, crops, flips in ((face, sub_faces, [False] * 2),
+                                  (hand, sub_hand_imgs, sub_flips)):
+            name = f"{'int8' if quantized else 'f32'} {det.arch}"
+            if quantized:
+                _, n = _crop_keypoints_vs_cpu(name, det, crops, flips, 0.0)
+            else:
+                f32 = _f32_view(det)
+                _, n = _crop_keypoints_vs_cpu(name, f32, crops, flips, 1e-4)
+            excused += n
+    t_cpu = time.perf_counter() - t_cpu
+
+    # --- where the time goes ---
+    eight = (faces * 8)[:8]
+    with torch.no_grad(), float32_numerics():
+        split = {}
+        for det, name in ((face, "facenet"), (hand, "handnet")):
+            for b in (1, 8):
+                x = preprocess_crops_u8(torch.from_numpy(
+                    det.prepare_crops(eight[:b], [False] * b)).cuda())
+                split[f"{name}_f32_forward_B{b}_ms"] = _cuda_ms(
+                    lambda: det.model(x), 5)
+                split[f"{name}_int8_forward_B{b}_ms"] = _cuda_ms(
+                    lambda: det._quant_forward(x), 5)
+    split["face_host_resize_ms_per_crop"] = _host_ms(
+        lambda: face.prepare_crops(faces, [False] * len(faces)), 2) / len(
+            faces)
+    split["hand_host_resize_ms_per_crop"] = _host_ms(
+        lambda: hand.prepare_crops(hand_imgs, [s == "left" for s in sides]),
+        2) / len(hands)
+    split["face_int8_detect_batch_ms_per_crop"] = _host_ms(
+        lambda: face.detect_batch(faces), 2) / len(faces)
+    split["hand_int8_detect_batch_ms_per_crop"] = _host_ms(
+        lambda: hand.detect_batch(hand_imgs, sides), 2) / len(hands)
+    f32_face_det, f32_hand_det = _f32_view(face), _f32_view(hand)
+    split["face_f32_detect_batch_ms_per_crop"] = _host_ms(
+        lambda: f32_face_det.detect_batch(faces), 2) / len(faces)
+    split["hand_f32_detect_batch_ms_per_crop"] = _host_ms(
+        lambda: f32_hand_det.detect_batch(hand_imgs, sides), 2) / len(hands)
+    print(f"crop nets ({len(faces)} faces, {len(hands)} hands; forwards by "
+          f"CUDA events on 368x368 crops, detect_batch on the host clock, "
+          f"median of 2): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()}))
+    print(f"crop nets: {excused} keypoint channels excused in all; card vs "
+          f"CPU checks {t_cpu:.2f} s, phase 8 so far "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return counts
+
+
+def _f32_view(det):
+    """A quantized crop detector's float32 twin on the card: the same
+    object with the int8 forward set aside."""
+    import copy
+
+    view = copy.copy(det)
+    view._quant_forward = None
+    view.quantized = False
+    return view
+
+
+def check_crop_kernels(cfg):
+    """Phase 8, kernels: conv7 at the crop nets' groups and conv_s8 at
+    their new layers, B = 1 and 8, every tile, bit-equal; blur_nms at
+    sigma 5 and 8 (radius 20 and 32, the run-time-tap kernel) bit-equal,
+    and its radius-20 time beside radius 10's; greedy_match's planted ties
+    on the card against the CPU.  Prints conv7's times at the new groups."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.ops import blur_nms as bn
+    from tpupose_torch.ops import conv7 as c7
+    from tpupose_torch.ops import conv_s8 as cs
+    from tpupose_torch.ops.paf import greedy_match
+
+    rng = np.random.RandomState(3)
+    h, w = CROP_GRID
+    for b in (1, 8):
+        for channels in CROP_CONV7_GROUPS:
+            parts, kernels, mults, bias = _conv7_case(rng, b, h, w,
+                                                      channels)
+            packed = [c7.pack_conv7_weights(k) for k in kernels]
+            ref = c7.conv7_s8_reference(parts, kernels, mults, bias)
+            tiles = {}
+            for tile in range(len(c7.TILE_ROWS)):
+                got = c7.conv7_s8(parts, kernels, mults, bias, packed=packed,
+                                  tile=tile)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"conv7_s8 disagrees at {(b, h, w)} "
+                                         f"groups {channels} tile {tile}")
+                tiles[tile] = lambda tile=tile: c7.conv7_s8(
+                    parts, kernels, mults, bias, packed=packed, tile=tile)
+            pick = c7.pick_tile(b, h, w, 128)
+            if channels == (128,):
+                print(f"conv7_s8 {(b, h, w)} groups {channels}: bit_equal="
+                      f"True at every tile")
+                continue
+            bound, bound_by = conv7_bound(b, h, w, channels, 128)
+            cat = torch.cat(parts, dim=-1)
+            patches = _patch_matrix(cat, 7)
+            wmat = torch.nn.functional.pad(
+                torch.cat(kernels, dim=2).reshape(-1, 128),
+                (0, 0, 0, patches.shape[1] - 49 * cat.shape[-1])).contiguous()
+            times = _round_robin_ms(
+                {"plain": lambda: c7.conv7_s8_reference(parts, kernels,
+                                                        mults, bias),
+                 "kernel": tiles[pick],
+                 "int_mm": lambda: torch._int_mm(patches, wmat)},
+                iters=10, timer=_graph_ms)
+            print(f"conv7_s8 {(b, h, w)} groups {channels}: bit_equal=True "
+                  f"at every tile (picks {c7.TILE_ROWS[pick]} rows); "
+                  + ", ".join(f"{k} {v!r} ms" for k, v in times.items())
+                  + f", bound {bound!r} ms ({bound_by}) (CUDA-graph replays "
+                  f"of 10 calls, in turns)")
+    for name, (c, o, k) in CROP_CONV_S8.items():
+        for b in (1, 8):
+            x, kq, mult, bias = _conv_s8_case(rng, b, h, w, c, o, k)
+            ref = cs.conv_s8_reference(x, kq, mult, bias)
+            for tile, (_, _, tile_n) in enumerate(cs.TILES):
+                if o % tile_n:
+                    continue
+                if not torch.equal(cs.conv_s8(x, kq, mult, bias, tile=tile),
+                                   ref):
+                    raise AssertionError(f"conv_s8 disagrees at {name} B={b} "
+                                         f"tile {cs.TILES[tile]}")
+            pick = cs.pick_tile(b, h, w, c, o, k)
+            packed = cs.pack_conv_s8_weights(kq)
+            patches = _patch_matrix(x, k)
+            wmat = torch.nn.functional.pad(
+                kq.reshape(k * k * c, o),
+                (0, 0, 0, patches.shape[1] - k * k * c)).contiguous()
+            times = _round_robin_ms(
+                {"plain": lambda: cs.conv_s8_reference(x, kq, mult, bias),
+                 "kernel": lambda: cs.conv_s8(x, kq, mult, bias,
+                                              packed=packed, tile=pick),
+                 "int_mm": lambda: torch._int_mm(patches, wmat)},
+                iters=10, timer=_graph_ms)
+            bound, bound_by = conv_s8_bound(b, h, w, c, o, k)
+            print(f"conv_s8 {name} {(b, h, w)} {c} -> {o} {k}x{k}: "
+                  f"bit_equal=True at every tile (picks {cs.TILES[pick]}); "
+                  + ", ".join(f"{n} {v!r} ms" for n, v in times.items())
+                  + f", bound {bound!r} ms ({bound_by}) (CUDA-graph replays "
+                  f"of 10 calls, in turns)")
+
+    shape = (18, 320, 432)
+    x = torch.from_numpy(_planted(rng, *shape)).cuda()
+    for sigma in (5.0, 8.0):
+        s, m = bn.blur_nms(x, sigma, cfg.heatmap_peak_thresh)
+        rs, rm = bn.blur_nms_reference(x, sigma, cfg.heatmap_peak_thresh)
+        if not (torch.equal(s, rs) and torch.equal(m, rm)):
+            raise AssertionError(f"blur_nms disagrees at sigma {sigma}")
+        print(f"blur_nms {shape} sigma {sigma} (radius "
+              f"{bn._taps(sigma)[1]}): bit_equal=True, mask_equal=True, "
+              f"peaks={int(rm.sum())}")
+    times = _round_robin_ms(
+        {f"radius {bn._taps(sg)[1]}": (
+            lambda sg=sg: bn.blur_nms(x, sg, cfg.heatmap_peak_thresh))
+         for sg in (2.5, 5.0)}, iters=20, timer=_graph_ms)
+    floors = blur_nms_floors(*shape, taps=41)
+    print(f"blur_nms {shape}: " + ", ".join(f"{k} {v!r} ms"
+                                            for k, v in times.items())
+          + " (CUDA-graph replays of 20 calls, in turns; radius 20 takes "
+          f"the run-time-tap kernel); radius 20's floors: bytes "
+          f"{floors['bytes']!r} ms, operations {floors['operations']!r} ms")
+
+    # greedy_match's planted ties (tests/test_torch_ops.py)
+    rng = np.random.RandomState(0)
+    n_limbs, k = 24, 8
+    score = rng.randint(0, 4, (n_limbs, k, k)).astype(np.float32) / 4.0
+    n_a = rng.randint(0, k + 1, n_limbs)
+    n_b = rng.randint(0, k + 1, n_limbs)
+    valid = rng.rand(n_limbs, k, k) < rng.uniform(0.2, 0.9, (n_limbs, 1, 1))
+    for limb in range(n_limbs):
+        valid[limb, n_a[limb]:, :] = False
+        valid[limb, :, n_b[limb]:] = False
+    args = [torch.from_numpy(a) for a in (score, valid, n_a, n_b)]
+    ref = greedy_match(*args)
+    got = greedy_match(*[a.cuda() for a in args])
+    if not all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)):
+        raise AssertionError("greedy_match's planted ties: card != CPU")
+    print(f"greedy_match planted ties ({n_limbs} limbs, {k} slots): card "
+          f"equals CPU, {int(ref[3].sum())} pairs")
+
+
+def check_tiny_frames(cfg, frames):
+    """1x1, 16x9 and 9x16 frames give (0, 18, 3) tables on the fast,
+    precise and int8 paths, through ``__call__`` and ``detect_batch``,
+    from seeded weights left uncalibrated (a calibrated random net's maps
+    may carry peaks even on a black frame)."""
+    import copy
+
+    import numpy as np
+
+    from tpupose_torch.detectors.pose import PoseDetector
+
+    fast = PoseDetector(cfg=cfg, device="cuda", seed=5)
+    precise = copy.copy(fast)       # the same weights, the precise pyramid
+    precise.precise = True
+    checked = 0
+    for label, det in (("fast", fast), ("precise", precise), ("int8", fast)):
+        if label == "int8":
+            fast.quantize([frames[0]])
+        for shape in ((1, 1, 3), (16, 9, 3), (9, 16, 3)):
+            frame = np.zeros(shape, np.uint8)
+            for poses, scores in (det(frame),
+                                  det.detect_batch(frame[None])[0]):
+                if poses.shape != (0, 18, 3) or scores.shape != (0,):
+                    raise AssertionError(f"{label} {shape}: table "
+                                         f"{poses.shape}")
+                checked += 1
+    print(f"tiny frames (1x1, 16x9, 9x16): {checked} tables of (0, 18, 3) "
+          f"on the fast, precise and int8 paths, __call__ and detect_batch")
+
+
 def _start_resource_report(name):
     """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu`` (registers, shared
     memory and spills of each kernel); returns (process, cubin path)."""
@@ -1234,6 +1691,14 @@ def main() -> int:
     im2col_counts = split_int8(qdet, x, frames[0], precise_ms, conv7_grids,
                                conv_s8_layers)
     profile_blur_nms(f32_det, cfg, frames[0])
+    t0 = time.perf_counter()
+    crop_counts = run_crop_nets(f32_det, cfg, frames)
+    t1 = time.perf_counter()
+    check_crop_kernels(cfg)
+    t2 = time.perf_counter()
+    check_tiny_frames(cfg, frames)
+    print(f"phase 8: crop nets {t1 - t0:.2f} s, kernels {t2 - t1:.2f} s, "
+          f"tiny frames {time.perf_counter() - t2:.2f} s")
 
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "cv2", "tpupose")]
@@ -1241,7 +1706,7 @@ def main() -> int:
         raise AssertionError(f"the port imported {leaked[:4]}")
     # launches: the sum over the driven paths, each counted from zero
     launches = {name: quant_counts[name] + precise_counts[name]
-                for name in quant_counts}
+                + crop_counts[name] for name in quant_counts}
     launches["blur_nms"] += fast_launches
     # requant runs on the im2col route only: its launches are those of
     # phase 7's im2col forward

@@ -59,14 +59,20 @@ inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 inline thread_local std::barrier<>* host_barrier;
 inline thread_local int* host_smem;
 inline void __syncthreads() { host_barrier->arrive_and_wait(); }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class K>
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 template <class K, class... A>
-void host_launch(K kernel, dim3 grid, int threads, int, cudaStream_t,
-                 A... args) {
+void host_launch(K kernel, dim3 grid, int threads, int smem_bytes,
+                 cudaStream_t, A... args) {
+  const int words = (smem_bytes > 64 * 1024 ? smem_bytes : 64 * 1024) / 4;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         // NaN bit patterns, so a read of an unwritten slot shows
-        std::vector<int> smem(64 * 1024 / 4, 0x7fc00001);
+        std::vector<int> smem(words, 0x7fc00001);
         std::barrier<> bar(threads);
         std::vector<std::thread> block;
         for (int t = 0; t < threads; ++t)
@@ -86,12 +92,14 @@ void host_launch(K kernel, dim3 grid, int threads, int, cudaStream_t,
 def _host_source(cuda_source: str) -> str:
     src = cuda_source.replace("#include <cuda_runtime.h>",
                               '#include "host_shim.h"')
-    src, n_smem = re.subn(r"__shared__ __align__\(16\) int smem\[[^\]]*\];",
-                          "int* smem = host_smem;", src)
-    src, n_launch = re.subn(r"(\w+<R>)<<<(.*?)>>>\(", r"host_launch(\1, \2, ",
-                            src, flags=re.S)
+    src, n_smem = re.subn(
+        r"(?:extern )?__shared__ __align__\(16\) int (\w+)\[[^\]]*\];",
+        r"int* \1 = host_smem;", src)
+    src, n_launch = re.subn(r"(\w+(?:<R>)?)<<<(.*?)>>>\(",
+                            r"host_launch(\1, \2, ", src, flags=re.S)
     src = re.sub(r'asm\(""\s*:\s*"\+l"\([^)]*\)\);', "", src)
-    assert (n_smem, n_launch) == (1, 1), "blur_nms.cu changed: update shim"
+    # the unrolled kernel (radii 0-16) and the run-time-tap one (17-255)
+    assert (n_smem, n_launch) == (2, 2), "blur_nms.cu changed: update shim"
     return src
 
 
@@ -125,8 +133,13 @@ def host_kernel(tmp_path_factory):
     ((2, 300, 5), 2.5),
     ((1, 64, 256), 2.5),     # whole strips and bands
     ((1, 40, 140), 1.0),     # radius 4
-    ((1, 40, 140), 4.0),     # radius 16, the largest the kernel takes
+    ((1, 40, 140), 4.0),     # radius 16, the largest unrolled one
     ((1, 9, 11), 0.1),       # radius 0
+    # the run-time-tap kernel, radius r at sigma r / 4: every radius from
+    # 17 to 32 over maps smaller than the radius, ragged and thin ones
+    *[(((3, 7, 9), (1, 40, 140), (2, 33, 131), (2, 5, 70), (1, 70, 5),
+        (1, 64, 256))[r % 6], r / 4) for r in range(17, 33)],
+    ((1, 20, 30), 63.75),    # radius 255, the largest the kernel takes
 ])
 def test_blur_nms_kernel_source_matches_reference_on_host(host_kernel,
                                                           shape, sigma):

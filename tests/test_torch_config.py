@@ -69,3 +69,34 @@ def test_warn_on_load_report_warns_as_jax(report, warns):
             assert issubclass(seen[0].category, RuntimeWarning)
             assert "does not fully match the posenet model" in str(
                 seen[0].message)
+
+
+@pytest.mark.parametrize("name", ["FaceConfig", "HandConfig"])
+def test_crop_configs_equal_jax_field_by_field(name):
+    jcls, tcls = getattr(jcfg, name), getattr(tcfg, name)
+    jfields = [f.name for f in dataclasses.fields(jcls)]
+    assert [f.name for f in dataclasses.fields(tcls)] == jfields
+    single = {"FaceConfig": "FACE", "HandConfig": "HAND"}[name]
+    for field in jfields:
+        assert (getattr(getattr(tcfg, single), field)
+                == getattr(getattr(jcfg, single), field)), field
+
+
+def test_drawing_topologies_and_limb_count_equal_jax():
+    assert tcfg.FACE_LINES == jcfg.FACE_LINES
+    assert tcfg.FINGER_LINES == jcfg.FINGER_LINES
+    assert tcfg.NUM_LIMBS == jcfg.NUM_LIMBS == 19
+
+
+@pytest.mark.parametrize("arch", ["facenet", "handnet"])
+def test_layer_to_path_equals_jax_on_every_crop_net_layer(arch):
+    from tpupose_torch.models import ARCHS
+
+    layers = [(name.split(".")[-2], name)
+              for name, m in ARCHS[arch]().named_modules()
+              if isinstance(m, nn.Conv2d)]
+    assert len(layers) == 15 + 2 + 5 * 7
+    for layer, module_name in layers:
+        got = tw.layer_to_path(layer)
+        assert got == jnpz.layer_to_path(layer), layer
+        assert f"{got[0]}.{got[1]}.conv" == module_name

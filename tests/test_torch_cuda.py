@@ -337,3 +337,207 @@ def test_quantized_precise_detector_on_the_card(cuda_device):
         assert got.shape == poses.shape
     with pytest.raises(ValueError, match="already quantized"):
         det.quantize([frame])
+
+
+# ---------------------------------------------------------------------------
+# blur_nms above radius 16, find_peaks and the matcher's ties on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape, sigma", [
+    ((18, 320, 432), 5.0), ((18, 320, 432), 8.0),    # radius 20 and 32
+    ((3, 7, 9), 4.25), ((2, 33, 131), 6.0),          # 17; ragged, 24
+    ((2, 5, 300), 7.0), ((2, 300, 5), 7.75),         # thin: 28, 31
+    ((1, 20, 30), 63.75)])                           # radius 255, the last
+def test_blur_nms_kernel_above_radius_16_matches_reference(cuda_device,
+                                                           shape, sigma):
+    x = torch.from_numpy(_planted(np.random.RandomState(7), *shape)).to(
+        cuda_device)
+    before = bn.blur_nms.launches
+    s, m = bn.blur_nms(x, sigma, 0.05)
+    rs, rm = bn.blur_nms_reference(x, sigma, 0.05)
+    torch.cuda.synchronize()
+    assert bn.blur_nms.launches == before + 1
+    assert torch.equal(s, rs)
+    assert torch.equal(m, rm)
+
+
+def test_blur_nms_names_its_radius_limit(cuda_device):
+    x = torch.zeros(1, 8, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="radii up to 255"):
+        bn.blur_nms(x, 64.0, 0.05)
+
+
+def test_find_peaks_at_sigma_5_on_the_card_equals_the_cpu(cuda_device):
+    from tpupose_torch.ops.peaks import find_peaks
+
+    hm = torch.from_numpy(_planted(np.random.RandomState(8), 18, 46, 62))
+    before = bn.blur_nms.launches
+    got = find_peaks(hm.to(cuda_device), 5.0, 0.05, 32)
+    ref = find_peaks(hm, 5.0, 0.05, 32)
+    assert bn.blur_nms.launches == before + 1
+    for name in ("x", "y", "score", "valid", "dropped"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), name
+    assert int(ref.valid.sum()) > 0
+
+
+def test_greedy_match_planted_ties_on_the_card_equal_the_cpu(cuda_device):
+    """The ties of ``tests/test_torch_ops.py``'s planted-tie case: the
+    card's first-max rule picks the CPU's pairs limb by limb."""
+    from tpupose_torch.ops.paf import greedy_match
+
+    rng = np.random.RandomState(0)
+    n_limbs, k = 24, 8
+    score = rng.randint(0, 4, (n_limbs, k, k)).astype(np.float32) / 4.0
+    n_a = rng.randint(0, k + 1, n_limbs)
+    n_b = rng.randint(0, k + 1, n_limbs)
+    valid = rng.rand(n_limbs, k, k) < rng.uniform(0.2, 0.9, (n_limbs, 1, 1))
+    for l in range(n_limbs):
+        valid[l, n_a[l]:, :] = False
+        valid[l, :, n_b[l]:] = False
+    args = [torch.from_numpy(a) for a in (score, valid, n_a, n_b)]
+    ref = greedy_match(*args)
+    got = greedy_match(*[a.to(cuda_device) for a in args])
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+def test_global_argmax_ties_on_the_card_take_the_first(cuda_device):
+    from tpupose_torch.ops.peaks import global_argmax_keypoints
+
+    hm = np.zeros((3, 40, 50), np.float32)
+    hm[0, 10, 12] = hm[0, 30, 40] = 1.0     # two equal peaks
+    hm[1] = 0.25                            # flat: every pixel ties
+    hm[2, 20, 25] = 0.5
+    x = torch.from_numpy(hm)
+    ref = global_argmax_keypoints(x, 2.5, 0.01)
+    got = global_argmax_keypoints(x.to(cuda_device), 2.5, 0.01)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert ref[0].tolist() == [12, 0, 25] and ref[1].tolist() == [10, 0, 20]
+
+
+# ---------------------------------------------------------------------------
+# the crop nets' kernel shapes and detectors
+# ---------------------------------------------------------------------------
+
+# (group channels) of the refine stages' Mconv1: FaceNet, HandNet; then the
+# 128 -> 128 Mconv2-5
+CROP_CONV7_GROUPS = [(71, 128), (22, 128), (128,)]
+
+
+@pytest.mark.parametrize("tile", range(len(c7.TILE_ROWS)))
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("channels", CROP_CONV7_GROUPS,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_conv7_kernel_at_the_crop_nets_shapes(cuda_device, tile, b,
+                                              channels):
+    parts, kernels, mults, bias = _conv7_case(
+        np.random.RandomState(b + tile), b, 46, 46, channels, cuda_device)
+    got = c7.conv7_s8(parts, kernels, mults, bias, tile=tile)
+    ref = c7.conv7_s8_reference(parts, kernels, mults, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+# The crop nets' conv_s8 layers that the pose net has not: the stem's
+# 512 -> 512 3x3 at 46x46, conv5_3_CPM and conv6_1_CPM; and the input
+# layer at 368x368, at B = 1 and 8.
+CROP_CONV_S8_LAYERS = [
+    (1, 46, 46, 512, 512, 3), (8, 46, 46, 512, 512, 3),
+    (1, 46, 46, 512, 128, 3), (8, 46, 46, 512, 128, 3),
+    (1, 46, 46, 128, 512, 1), (8, 368, 368, 3, 64, 3)]
+
+
+@pytest.mark.parametrize("layer", CROP_CONV_S8_LAYERS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_s8_kernel_at_the_crop_nets_shapes(cuda_device, layer):
+    x, kq, mult, bias = _conv_s8_case(np.random.RandomState(sum(layer)),
+                                      *layer, cuda_device)
+    o = layer[4]
+    for tile, (_, _, tile_n) in enumerate(cs.TILES):
+        if o % tile_n:
+            continue
+        got = cs.conv_s8(x, kq, mult, bias, tile=tile)
+        ref = cs.conv_s8_reference(x, kq, mult, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), cs.TILES[tile]
+
+
+def _crop_detector_pair(arch, cuda_device, size=64):
+    from tpupose_torch.config import FaceConfig, HandConfig
+    from tpupose_torch.detectors import FaceDetector, HandDetector
+    from tpupose_torch.utils.calibrate import calibrate_crop_output_conv
+
+    cls, cfg = {"facenet": (FaceDetector, FaceConfig(img_size=size)),
+                "handnet": (HandDetector, HandConfig(img_size=size))}[arch]
+    rng = np.random.RandomState(len(arch))
+    crops = [rng.randint(0, 256, (40 + 9 * i, 50 - 4 * i, 3)).astype(
+        np.uint8) for i in range(3)]
+    cpu = cls(cfg=cfg, device="cpu", seed=0)
+    calibrate_crop_output_conv(cpu, crops)
+    card = cls(cfg=cfg, device=cuda_device, seed=1)
+    card.model.load_state_dict(cpu.model.state_dict())
+    return cpu, card, crops
+
+
+@pytest.mark.parametrize("arch", ["facenet", "handnet"])
+def test_crop_detector_on_the_card_matches_the_cpu(cuda_device, arch):
+    """float32 maps within 1e-4 x max|ref| of the CPU's; after
+    ``quantize`` (kernel route on the card: 25 conv7 and 21 conv_s8
+    launches per forward, no requant) every stage's int8 maps equal the
+    CPU's int8 forward on the same tree."""
+    from tpupose_torch import quant as tq
+
+    cpu, card, crops = _crop_detector_pair(arch, cuda_device)
+    flips = [False, True, False]
+    imgs = card.prepare_crops(crops, flips)
+    got, ref = card.forward_maps(imgs), cpu.forward_maps(imgs)
+    scale = ref.abs().max().item()
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4 * scale
+    keypoints = card.detect_crops(crops, flips)
+    assert len(keypoints) == 3 and any(k is not None for k in keypoints[0])
+
+    card.quantize(crops)
+    assert card.conv7_impl == "kernel"
+    c7.conv7_s8.launches = cs.conv_s8.launches = 0
+    rq.requant_epilogue.launches = 0
+    got = card.forward_maps(imgs)
+    torch.cuda.synchronize()
+    assert (c7.conv7_s8.launches, cs.conv_s8.launches,
+            rq.requant_epilogue.launches) == (25, 21, 0)
+    host = tq.make_quant_apply(card.quant_static, tq.qtree_to_device(
+        card.qtree, card.quant_static, "cpu"))
+    with torch.no_grad():
+        ref = host(torch.from_numpy(imgs).float() / 256.0 - 0.5)
+    assert torch.equal(got.cpu(), ref)
+
+
+def _tiny_frames():
+    return [np.zeros(s, np.uint8) for s in ((1, 1, 3), (16, 9, 3),
+                                            (9, 16, 3))]
+
+
+@pytest.mark.parametrize("mode", ["fast", "precise", "int8"])
+def test_tiny_frames_give_empty_tables_on_the_card(cuda_device, mode):
+    cfg = InferenceConfig(img_size=96, heatmap_size=88)
+    det = PoseDetector(cfg=cfg, device=cuda_device, seed=0,
+                       precise=mode == "precise")
+    if mode == "int8":
+        det.quantize([np.random.RandomState(0).randint(
+            0, 256, (64, 64, 3)).astype(np.uint8)])
+    for frame in _tiny_frames():
+        for poses, scores in (det(frame), det.detect_batch(frame[None])[0]):
+            assert poses.shape == (0, 18, 3) and scores.shape == (0,)
+
+
+def test_detect_precise_equals_call_on_the_card(cuda_device):
+    cfg = InferenceConfig(img_size=96, heatmap_size=88, max_subsets=128,
+                          n_subset_limbs_thresh=2, subset_score_thresh=0.05)
+    frame = np.random.RandomState(0).randint(0, 256, (96, 128, 3)).astype(
+        np.uint8)
+    det = PoseDetector(cfg=cfg, device=cuda_device, seed=0, precise=True)
+    assert calibrate_output_convs(det, frame)
+    got, ref = det.detect_precise(frame), det(frame)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])

@@ -186,6 +186,18 @@ def test_find_peaks_matches_jax(seed, max_peaks):
         assert int(got.dropped) > 0   # the saturation counter is exercised
 
 
+@pytest.mark.parametrize("sigma", [5.0, 8.0])
+def test_find_peaks_above_the_unrolled_radius_matches_jax(sigma):
+    """sigma 5 and 8 (radius 20 and 32: the CUDA kernel's run-time-tap
+    path on the card) through the plain version, against JAX's."""
+    hm = _planted_heatmaps(np.random.RandomState(int(sigma)))
+    ref = jpeaks.find_peaks(jnp.asarray(hm), sigma, 0.05, 16,
+                            use_pallas=False)
+    got = tpeaks.find_peaks(_t(hm), sigma, 0.05, 16)
+    _assert_peaks_equal(got, ref)
+    assert int(got.valid.sum()) > 0
+
+
 def test_extract_peaks_tiny_map_pads_table():
     mask = np.zeros((2, 2, 3), bool)
     mask[0, 1, 2] = mask[1, 0, 0] = True

@@ -207,3 +207,84 @@ def test_from_rows_pair_equals_postprocess_pose(seed, n_people):
                                       np.asarray(getattr(ref_conns, name)))
     np.testing.assert_allclose(conns.score.numpy(),
                                np.asarray(ref_conns.score), atol=1e-5)
+
+
+def test_detect_precise_is_the_precise_call(params, detectors):
+    """``detect_precise`` on a precise detector is its ``__call__``; on a
+    fast detector it runs the pyramid all the same, as the JAX package's
+    does, and matches JAX's ``detect_precise`` there."""
+    from tpupose.detectors import PoseDetector as JaxPoseDetector
+
+    _, tdet = detectors["separate"]
+    got, ref = tdet.detect_precise(_frame(0)), tdet(_frame(0))
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert len(got[0]) >= 1
+    fast = PoseDetector(params=params, cfg=CFG, device="cpu")
+    poses, scores = fast.detect_precise(_frame(0))
+    np.testing.assert_array_equal(poses, got[0])
+    np.testing.assert_array_equal(scores, got[1])
+    jfast = JaxPoseDetector("posenet", cfg=CFG, params=params)
+    ref_poses, ref_scores = jfast.detect_precise(_frame(0))
+    _assert_pose_tables_match(poses, scores, ref_poses, ref_scores)
+
+
+
+TINY = ((1, 1, 3), (16, 9, 3), (9, 16, 3))
+
+
+@pytest.fixture(scope="module")
+def raw_params():
+    """The JAX detector's seeded weights without the calibration: maps
+    near 1e-3, so no peak clears the threshold."""
+    from tpupose.detectors import PoseDetector as JaxPoseDetector
+
+    jdet = JaxPoseDetector("posenet", cfg=CFG)
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(jdet.variables))
+
+
+def _tables(det, frame):
+    return [det(frame), det.detect_batch(frame[None])[0]]
+
+
+@pytest.mark.parametrize("mode", ["fast", "precise", "int8"])
+def test_tiny_frames(params, raw_params, detectors, mode):
+    """1x1, 16x9 and 9x16 frames through ``__call__`` and
+    ``detect_batch`` on the fast, precise and int8 paths, as the JAX
+    package's ``tests/test_detectors.py`` drives them: (0, 18, 3) tables
+    from the uncalibrated weights (JAX's are empty too); with the
+    calibrated weights, whose maps carry peaks even on a black frame, the
+    f32 tables match JAX's."""
+    from tpupose.detectors import PoseDetector as JaxPoseDetector
+    from tpupose_torch.weights import load_flax_params
+
+    if mode == "precise":
+        jdet, det = detectors["separate"]
+        load_flax_params(det.model, raw_params)
+    else:
+        jdet = JaxPoseDetector("posenet", cfg=CFG, params=params)
+        det = PoseDetector(params=raw_params, cfg=CFG, device="cpu")
+        if mode == "int8":
+            det.quantize([_frame(0)])
+    try:
+        for shape in TINY:
+            for poses, scores in _tables(det, np.zeros(shape, np.uint8)):
+                assert poses.shape == (0, NUM_JOINTS, 3)
+                assert scores.shape == (0,)
+    finally:
+        if mode != "int8":
+            load_flax_params(det.model, params)
+    if mode == "int8":
+        return
+    n = 0
+    # JAX compiles a precise program per geometry (~10 s each): one frame
+    for shape in TINY if mode == "fast" else TINY[1:2]:
+        frame = np.zeros(shape, np.uint8)
+        ref_poses, ref_scores = jdet(frame)
+        for poses, scores in _tables(det, frame):
+            assert poses.shape[1:] == (NUM_JOINTS, 3)
+            _assert_pose_tables_match(poses, scores, ref_poses, ref_scores)
+        n += len(ref_poses)
+    # the fast path's black frames hold people; the pyramid's maps at the
+    # frames' own few pixels hold none
+    assert n >= 1 if mode == "fast" else n == 0

@@ -1,8 +1,9 @@
 """The pose schema and inference configuration of the port.
 
 The port's own copy of what it uses from ``tpupose/config.py``: the
-18-joint skeleton, the 19-limb PAF topology and ``InferenceConfig``, with
-the same values, so the port imports nothing of the JAX package.
+18-joint skeleton, the 19-limb PAF topology, ``InferenceConfig``, the face
+and hand nets' ``FaceConfig`` / ``HandConfig`` and their drawing topologies,
+with the same values, so the port imports nothing of the JAX package.
 ``tests/test_torch_config.py`` holds the two copies equal.
 """
 
@@ -63,12 +64,36 @@ LIMBS: Tuple[Tuple[int, int], ...] = (
     (JointType.LeftEye, JointType.LeftEar),
 )
 
+NUM_LIMBS = len(LIMBS)  # 19
+
 LIMBS_FROM = np.asarray([a for a, _ in LIMBS], np.int32)
 LIMBS_TO = np.asarray([b for _, b in LIMBS], np.int32)
 
 # Limbs that never spawn a new person subset during grouping (the
 # shoulder -> ear links).
 NON_SPAWNING_LIMBS: Tuple[int, ...] = (9, 13)
+
+# Face: 70 keypoints; polyline segments for drawing.
+FACE_LINES: Tuple[Tuple[int, int], ...] = tuple(
+    [(i, i + 1) for i in range(0, 16)]        # face outline
+    + [(i, i + 1) for i in range(17, 21)]     # right eyebrow
+    + [(i, i + 1) for i in range(22, 26)]     # left eyebrow
+    + [(i, i + 1) for i in range(27, 30)]     # nose bridge
+    + [(i, i + 1) for i in range(31, 35)]     # under-nose line
+    + [(36, 37), (37, 38), (38, 39), (39, 40), (40, 41), (41, 36)]  # right eye
+    + [(42, 43), (43, 44), (44, 45), (45, 46), (46, 47), (47, 42)]  # left eye
+    + [(i, i + 1) for i in range(48, 59)] + [(59, 48)]  # outer lips
+    + [(i, i + 1) for i in range(60, 67)] + [(67, 60)]  # inner lips
+)
+
+# Hand: 21 keypoints, 5 fingers x 4 segments.
+FINGER_LINES: Tuple[Tuple[Tuple[int, int], ...], ...] = (
+    ((0, 1), (1, 2), (2, 3), (3, 4)),
+    ((0, 5), (5, 6), (6, 7), (7, 8)),
+    ((0, 9), (9, 10), (10, 11), (11, 12)),
+    ((0, 13), (13, 14), (14, 15), (15, 16)),
+    ((0, 17), (17, 18), (18, 19), (19, 20)),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,4 +136,27 @@ class InferenceConfig:
     quant_min_side: int = 256
 
 
+@dataclasses.dataclass(frozen=True)
+class FaceConfig:
+    """Face keypoint inference parameters."""
+
+    img_size: int = 368
+    heatmap_peak_thresh: float = 0.1
+    crop_scale: float = 1.5
+    gaussian_sigma: float = 2.5
+    num_keypoints: int = 70  # + 1 background channel in the net output
+
+
+@dataclasses.dataclass(frozen=True)
+class HandConfig:
+    """Hand keypoint inference parameters."""
+
+    img_size: int = 368
+    heatmap_peak_thresh: float = 0.1
+    gaussian_sigma: float = 2.5
+    num_keypoints: int = 21  # + 1 background channel in the net output
+
+
 INFERENCE = InferenceConfig()
+FACE = FaceConfig()
+HAND = HandConfig()

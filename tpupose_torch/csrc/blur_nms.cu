@@ -43,11 +43,20 @@
 // load, its address and reloads of the taps into uniform registers; with
 // the W pass and the NMS a block issues about 1.6 times the floor's
 // instructions, and its phases overlap only in part (PERF.md).
+//
+// Radii 17 to BLUR_NMS_MAX_TAPS_RADIUS (sigma >= 4.125) take a second kernel
+// whose tap loops run at run time: the same blocks, each thread summing one
+// H-pass value and then one W-pass value at a time from the taps in shared
+// memory, in tap order, so it is bit-equal to the same plain version.  It
+// is written to be right, not fast: it reads each input once per tap.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define BLUR_NMS_MAX_RADIUS 16
+// The largest radius the run-time kernel takes: its taps travel by value in
+// the launch's parameters (2 KiB of the 4 KiB they may hold).
+#define BLUR_NMS_MAX_TAPS_RADIUS 255
 
 namespace {
 
@@ -337,17 +346,123 @@ int launch_radius(int radius, const float* x, float* smoothed, uint8_t* mask,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Radii above BLUR_NMS_MAX_RADIUS: tap loops at run time.
+// ---------------------------------------------------------------------------
+
+struct TapsAny {
+  float w[2 * BLUR_NMS_MAX_TAPS_RADIUS + 1];
+};
+
+constexpr int kAnyThreads = 256;
+constexpr int kAnyRowsOut = kBandH + 2;   // the band and its two neighbours
+constexpr int kAnyColsB = kStripW + 2;    // the strip and its two neighbours
+
+// Shared memory, in 4-byte words: the taps, the mirrored input row table,
+// the H buffer (kAnyRowsOut rows of the strip, its neighbours and the W
+// pass's halo) and the blurred rows.
+__host__ __device__ constexpr int any_smem_words(int r) {
+  return (2 * r + 1) + (kAnyRowsOut + 2 * r) +
+         kAnyRowsOut * (kStripW + 2 * r + 2) + kAnyRowsOut * kAnyColsB;
+}
+
+__global__ void __launch_bounds__(kAnyThreads)
+blur_nms_any_kernel(const float* __restrict__ x, float* __restrict__ smoothed,
+                    uint8_t* __restrict__ mask, int H, int W, TapsAny taps,
+                    int R, float thresh) {
+  extern __shared__ __align__(16) int smem_any[];
+  const int n_taps = 2 * R + 1;
+  const int rows_in = kAnyRowsOut + 2 * R;
+  const int cols_h = kStripW + 2 * R + 2;
+  float* w = reinterpret_cast<float*>(smem_any);
+  int* row_off = smem_any + n_taps;
+  float* hbuf = reinterpret_cast<float*>(row_off + rows_in);
+  float* bbuf = hbuf + kAnyRowsOut * cols_h;
+  const int t = threadIdx.x;
+  const size_t plane = (size_t)H * W;
+  const float* xp = x + blockIdx.z * plane;
+  const int x0 = blockIdx.x * kStripW, y0 = blockIdx.y * kBandH;
+  for (int k = t; k < n_taps; k += kAnyThreads) w[k] = taps.w[k];
+  // Input row i is image row y0 - R - 1 + i.
+  for (int i = t; i < rows_in; i += kAnyThreads)
+    row_off[i] = reflect_index(y0 - R - 1 + i, H) * W;
+  __syncthreads();
+  // H pass: row y is image row y0 - 1 + y, column c image column
+  // x0 - R - 1 + c; it sums input rows y .. y + 2R.
+  for (int e = t; e < kAnyRowsOut * cols_h; e += kAnyThreads) {
+    const int y = e / cols_h, c = e - y * cols_h;
+    const float* col = xp + reflect_index(x0 - R - 1 + c, W);
+    float acc = __fmul_rn(__ldg(col + row_off[y]), w[0]);
+    for (int k = 1; k < n_taps; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(col + row_off[y + k]), w[k]));
+    hbuf[e] = acc;
+  }
+  __syncthreads();
+  // W pass: blurred column j (image column x0 - 1 + j) sums H-buffer
+  // columns j .. j + 2R.
+  for (int e = t; e < kAnyRowsOut * kAnyColsB; e += kAnyThreads) {
+    const int y = e / kAnyColsB, j = e - y * kAnyColsB;
+    const float* h = hbuf + y * cols_h + j;
+    float acc = __fmul_rn(h[0], w[0]);
+    for (int k = 1; k < n_taps; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(h[k], w[k]));
+    bbuf[e] = acc;
+  }
+  __syncthreads();
+  // NMS of the band: neighbours outside the image count as 0.
+  for (int e = t; e < kBandH * kStripW; e += kAnyThreads) {
+    const int ty = e / kStripW, tx = e - ty * kStripW;
+    const int gy = y0 + ty, gx = x0 + tx;
+    if (gy >= H || gx >= W) continue;
+    const float* b = bbuf + (ty + 1) * kAnyColsB + tx + 1;
+    const float v = b[0];
+    const float l = gx > 0 ? b[-1] : 0.0f;
+    const float r = gx < W - 1 ? b[1] : 0.0f;
+    const float n = gy > 0 ? b[-kAnyColsB] : 0.0f;
+    const float s = gy < H - 1 ? b[kAnyColsB] : 0.0f;
+    const size_t o = blockIdx.z * plane + (size_t)gy * W + gx;
+    smoothed[o] = v;
+    mask[o] = (uint8_t)((v > thresh) && (v > n) && (v > s) && (v > l) &&
+                        (v > r));
+  }
+}
+
+int launch_any(int radius, const float* x, float* smoothed, uint8_t* mask,
+               int J, int H, int W, const float* taps, float thresh,
+               cudaStream_t stream) {
+  TapsAny t = {};
+  for (int k = 0; k < 2 * radius + 1; ++k) t.w[k] = taps[k];
+  // Radii above 47 need more than the 48 KiB a block gets without asking
+  // (108,940 bytes at radius 255).
+  const int smem = 4 * any_smem_words(radius);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blur_nms_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((W + kStripW - 1) / kStripW, (H + kBandH - 1) / kBandH, J);
+  blur_nms_any_kernel<<<grid, kAnyThreads, smem, stream>>>(
+      x, smoothed, mask, H, W, t, radius, thresh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // x, smoothed: (J, H, W) float32 contiguous; mask: (J, H, W) one byte each,
-// both outputs 16-byte aligned; taps: 2 * radius + 1 host floats.
+// both outputs 16-byte aligned; taps: 2 * radius + 1 host floats.  Radii
+// 0-16 take the unrolled kernel, 17 to BLUR_NMS_MAX_TAPS_RADIUS the run-time
+// one.
 extern "C" int blur_nms_launch(const float* x, float* smoothed, uint8_t* mask,
                                int J, int H, int W, const float* taps,
                                int radius, float thresh, void* stream) {
   if (J <= 0 || H <= 0 || W <= 0 || J > 65535 || H > 65535 * kBandH ||
-      radius < 0 || radius > BLUR_NMS_MAX_RADIUS)
+      radius < 0 || radius > BLUR_NMS_MAX_TAPS_RADIUS)
     return (int)cudaErrorInvalidValue;
+  if (radius > BLUR_NMS_MAX_RADIUS)
+    return launch_any(radius, x, smoothed, mask, J, H, W, taps, thresh,
+                      (cudaStream_t)stream);
   Taps t = {};
   for (int k = 0; k < 2 * radius + 1; ++k) t.w[k] = taps[k];
   return launch_radius<0>(radius, x, smoothed, mask, J, H, W, t, thresh,

@@ -39,8 +39,9 @@ from tpupose_torch.models import ARCHS
 from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
                                       resize_cv2_cubic, resize_u8_linear)
-from tpupose_torch.quant import (CONV7_IMPLS, calibrate_ranges,
-                                 make_quant_apply, qtree_to_device, quantize)
+from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
+                                 qtree_to_device, quantize,
+                                 resolve_conv7_impl)
 from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
                                    warn_on_load_report)
 
@@ -119,6 +120,14 @@ def emit_result(result: PoseResult, scale_x: float, scale_y: float,
     return poses, scores, warned
 
 
+def _check_device_pyramid(cfg: InferenceConfig) -> None:
+    if not cfg.device_pyramid:
+        raise NotImplementedError(
+            "the host pyramid (cfg.device_pyramid=False, a host emulation "
+            "of cv2's uint8 INTER_CUBIC) is not ported yet (ROADMAP.md, "
+            "Queue 1 item 22)")
+
+
 class PoseDetector:
     """Multi-person pose detector; the whole per-frame pipeline after the
     host resize (fast path) or the upload (precise path) runs on
@@ -134,11 +143,8 @@ class PoseDetector:
         """``params``: a Flax param tree (numpy leaves) to load;
         ``weights_file``: a Chainer ``.npz``; otherwise the model keeps its
         weights drawn from ``seed``."""
-        if precise and not cfg.device_pyramid:
-            raise NotImplementedError(
-                "the host pyramid (cfg.device_pyramid=False, a host emulation "
-                "of cv2's uint8 INTER_CUBIC) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 22)")
+        if precise:
+            _check_device_pyramid(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -188,17 +194,7 @@ class PoseDetector:
         read)."""
         if self.quantized:
             raise ValueError("detector is already quantized")
-        if conv7_impl is None:
-            conv7_impl = "kernel" if self.device.type == "cuda" else "im2col"
-        if conv7_impl == "xla":
-            raise ValueError(
-                "conv7_impl='xla' has no counterpart in the port: PyTorch "
-                "has no int8 convolution; use 'kernel' or 'im2col'")
-        if conv7_impl not in CONV7_IMPLS:
-            raise ValueError(f"unknown conv7_impl {conv7_impl!r}")
-        if conv7_impl == "kernel" and self.device.type != "cuda":
-            raise ValueError("conv7_impl='kernel' launches a CUDA kernel; "
-                             f"this detector runs on {self.device}")
+        conv7_impl = resolve_conv7_impl(conv7_impl, self.device)
         size = size or self.cfg.img_size
         frames = np.stack([resize_u8_linear(np.asarray(img), (size, size))
                            for img in calib_images])
@@ -375,11 +371,12 @@ class PoseDetector:
     # entry points
     # ------------------------------------------------------------------
 
-    def _batch_maps(self, imgs: np.ndarray):
+    def _batch_maps(self, imgs: np.ndarray, precise: Optional[bool] = None):
         """(B, H, W, 3) uint8 original frames -> the channel-first maps the
-        postprocess consumes and the map -> original scale factors."""
+        postprocess consumes and the map -> original scale factors; the
+        precise pyramid if ``precise`` (default: the detector's mode)."""
         orig_h, orig_w = imgs.shape[1:3]
-        if self.precise:
+        if self.precise if precise is None else precise:
             paf, hm = self._precise_maps(imgs)
         else:
             (in_h, in_w), map_hw = self._geometry(orig_h, orig_w)
@@ -413,6 +410,18 @@ class PoseDetector:
         result, scale_x, scale_y = pending
         return self._emit(result, scale_x, scale_y)
 
+    def detect_precise(self, orig_img: np.ndarray):
+        """The precise pyramid on one frame, whatever the detector's mode
+        (as the JAX package's ``detect_precise``); ``__call__`` of a precise
+        detector goes through it."""
+        return self.collect(self._submit_precise(orig_img))
+
+    def _submit_precise(self, orig_img: np.ndarray):
+        _check_device_pyramid(self.cfg)
+        paf, hm, (scale_x, scale_y) = self._batch_maps(
+            np.asarray(orig_img)[None], precise=True)
+        return self._postprocess(paf[0], hm[0]), scale_x, scale_y
+
     def detect_batch(self, imgs: np.ndarray):
         """(B, H, W, 3) uint8 same-sized frames -> list of (poses, scores).
 
@@ -431,4 +440,41 @@ class PoseDetector:
         return poses, scores
 
     def __call__(self, orig_img: np.ndarray):
+        if self.precise:
+            return self.detect_precise(orig_img)
         return self.collect(self.submit(orig_img))
+
+
+def _main(argv=None):
+    """The JAX package's pose CLI:
+    ``python -m tpupose_torch.detectors.pose posenet <npz> --img x.png
+    [--precise] [--device cpu]``"""
+    import argparse
+
+    import cv2
+
+    from tpupose_torch.detectors.draw import draw_person_pose
+
+    p = argparse.ArgumentParser(description="Pose detector")
+    p.add_argument("arch", choices=("posenet",))
+    p.add_argument("weights", help="weights file path (.npz)")
+    p.add_argument("--img", "-i", required=True, help="image file path")
+    p.add_argument("--precise", action="store_true",
+                   help="multi-scale precise inference")
+    p.add_argument("--out", default="result.png")
+    p.add_argument("--device", default="cuda", help="torch device")
+    args = p.parse_args(argv)
+
+    detector = PoseDetector(args.arch, weights_file=args.weights,
+                            precise=args.precise, device=args.device)
+    img = cv2.imread(args.img)
+    if img is None:
+        raise FileNotFoundError(args.img)
+    poses, _ = detector(img)
+    print(f"{len(poses)} people")
+    print(f"Saving result into {args.out}...")
+    cv2.imwrite(args.out, draw_person_pose(img, poses))
+
+
+if __name__ == "__main__":
+    _main()

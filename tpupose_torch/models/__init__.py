@@ -1,7 +1,10 @@
+from tpupose_torch.models.facenet import FaceNet
+from tpupose_torch.models.handnet import HandNet
 from tpupose_torch.models.posenet import CocoPoseNet
 
-# Architecture registry (mirrors ``tpupose.models.ARCHS``; the crop nets are
-# not ported yet).
+# Architecture registry (mirrors ``tpupose.models.ARCHS``).
 ARCHS = {
     "posenet": CocoPoseNet,
+    "facenet": FaceNet,
+    "handnet": HandNet,
 }

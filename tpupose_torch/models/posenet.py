@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from tpupose_torch.models.cpm import (RefineBranch, Stage1Branch, VGG19Stem,
-                                      stack_stages)
+                                      init_conv_weights, stack_stages)
 
 NUM_PAF_CHANNELS = 38      # 19 limbs x (x, y)
 NUM_HEATMAP_CHANNELS = 19  # 18 joints + background
@@ -55,21 +55,3 @@ class CocoPoseNet(nn.Module):
             heatmaps.append(h2)
         return stack_stages(pafs), stack_stages(heatmaps)
 
-
-@torch.no_grad()
-def init_conv_weights(model: nn.Module, seed: int) -> None:
-    """Seeded draw of every conv, in module order, with Flax's default
-    init (what the JAX package's random weights use): ``lecun_normal``
-    kernels, a normal truncated at 2 sigma with variance 1/fan_in, and zero
-    biases.  PyTorch's own default (uniform biases of +-1/sqrt(fan_in))
-    leaves a 40-layer random net's maps flat and bias-dominated, with no
-    peaks to calibrate."""
-    gen = torch.Generator().manual_seed(seed)
-    for conv in model.modules():
-        if isinstance(conv, nn.Conv2d):
-            fan_in = conv.weight[0].numel()
-            # Flax divides by the std of a unit normal truncated at +-2.
-            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(conv.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=gen)
-            conv.bias.zero_()

@@ -22,8 +22,10 @@ from tpupose_torch.ops import _cuda_build
 from tpupose_torch.ops.gaussian import (gaussian_blur_reflect,
                                         scipy_gaussian_kernel_1d)
 
-# Must equal BLUR_NMS_MAX_RADIUS in csrc/blur_nms.cu.
-MAX_RADIUS = 16
+# Must equal BLUR_NMS_MAX_TAPS_RADIUS in csrc/blur_nms.cu, the size of the
+# taps array a launch carries (sigma ~63.6 at truncate 4).  Radii 0-16 take
+# the kernel unrolled per radius, larger ones its run-time-tap kernel.
+MAX_RADIUS = 255
 
 
 def nms_mask(smoothed: torch.Tensor, thresh: float) -> torch.Tensor:
@@ -55,8 +57,8 @@ def blur_nms(heatmaps: torch.Tensor, sigma: float, thresh: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(J, H, W) float32 -> (smoothed float32, mask bool), the semantics of
     ``blur_nms_reference``.  CPU tensors run the plain version; CUDA tensors
-    run the kernel, which adds one to ``blur_nms.launches`` per launch and
-    to ``blur_nms.shapes[(J, H, W)]``."""
+    run the kernel at any radius up to ``MAX_RADIUS``, which adds one to
+    ``blur_nms.launches`` per launch and to ``blur_nms.shapes[(J, H, W)]``."""
     if heatmaps.device.type == "cpu":
         return blur_nms_reference(heatmaps, sigma, thresh)
     if heatmaps.device.type != "cuda":
@@ -68,7 +70,8 @@ def blur_nms(heatmaps: torch.Tensor, sigma: float, thresh: float
         raise ValueError("blur_nms: input must be contiguous")
     c_taps, radius = _taps(float(sigma))
     if radius > MAX_RADIUS:
-        raise ValueError(f"blur_nms: sigma {sigma} needs radius {radius} > "
+        raise ValueError(f"blur_nms: sigma {sigma} needs radius {radius}; "
+                         f"the kernel's taps array holds radii up to "
                          f"{MAX_RADIUS}")
     j, h, w = heatmaps.shape
     smoothed = torch.empty_like(heatmaps)

@@ -3,6 +3,8 @@
 Per joint channel: SciPy-reflect Gaussian blur, then pixels strictly above
 the threshold and strictly above their 4 neighbours (out-of-image neighbours
 count as 0), gathered into a static ``(J, K)`` table in row-major scan order.
+The face and hand nets take one keypoint per channel instead, its global
+argmax (``global_argmax_keypoints``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from tpupose_torch.ops.blur_nms import blur_nms, nms_mask  # noqa: F401
+from tpupose_torch.ops.gaussian import gaussian_blur_reflect
 
 
 class Peaks(NamedTuple):
@@ -83,3 +86,23 @@ def find_peaks(heatmaps: torch.Tensor, sigma: float, thresh: float,
         raise ValueError(f"unknown peak NMS mode {mode!r}")
     smoothed, mask = blur_nms(heatmaps.contiguous(), sigma, thresh)
     return extract_peaks(mask, smoothed, max_peaks)
+
+
+def global_argmax_keypoints(heatmaps: torch.Tensor, sigma: float,
+                            thresh: float):
+    """One keypoint per channel: the global argmax of the blurred map.
+
+    heatmaps: (C, H, W) *without* the background channel.  Returns
+    ``(x, y, score, valid)``, each (C,): int64 coordinates, the blurred
+    value there and ``score > thresh``.  The blur is the plain
+    ``gaussian_blur_reflect`` on every device (the JAX package runs no
+    kernel here either); ties go to the first maximum in row-major order,
+    as ``jnp.argmax``'s do.
+    """
+    smoothed = gaussian_blur_reflect(heatmaps, sigma)
+    c, h, w = smoothed.shape
+    flat = smoothed.reshape(c, h * w)
+    idx = torch.argmax(flat, dim=1)
+    score = torch.gather(flat, 1, idx[:, None])[:, 0]
+    return (idx % w, torch.div(idx, w, rounding_mode="floor"), score,
+            score > thresh)

@@ -349,6 +349,25 @@ def qtree_to_device(qtree, static: QuantStatic, device,
 CONV7_IMPLS = ("kernel", "im2col")
 
 
+def resolve_conv7_impl(conv7_impl: Optional[str], device) -> str:
+    """A detector's ``quantize(conv7_impl=...)`` checked against its
+    device: None gives ``"kernel"`` on CUDA and ``"im2col"`` on the CPU;
+    ``"kernel"`` asks for CUDA; ``"xla"`` has no counterpart here."""
+    device = torch.device(device)
+    if conv7_impl is None:
+        conv7_impl = "kernel" if device.type == "cuda" else "im2col"
+    if conv7_impl == "xla":
+        raise ValueError(
+            "conv7_impl='xla' has no counterpart in the port: PyTorch "
+            "has no int8 convolution; use 'kernel' or 'im2col'")
+    if conv7_impl not in CONV7_IMPLS:
+        raise ValueError(f"unknown conv7_impl {conv7_impl!r}")
+    if conv7_impl == "kernel" and device.type != "cuda":
+        raise ValueError("conv7_impl='kernel' launches a CUDA kernel; "
+                         f"this detector runs on {device}")
+    return conv7_impl
+
+
 def _qconv(parts, spec, meta, conv7_impl: str = "im2col"):
     """One quantized conv layer: a tuple of int8 NHWC input groups (the
     refine-stage concat members; a 1-tuple elsewhere) -> int8 (or float32

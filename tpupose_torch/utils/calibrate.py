@@ -7,6 +7,8 @@ run near empty.  This rescales the last stage's output convs per channel so
 each blurred heatmap has ~``n_target`` above-threshold peaks and the PAF
 channels have unit amplitude.  Exact and linear: the output convs have no
 activation, so scaling weight and bias scales the emitted maps.
+``calibrate_crop_output_conv`` does the same for the face and hand nets,
+which the JAX package's module does not cover.
 """
 
 from __future__ import annotations
@@ -61,3 +63,28 @@ def calibrate_output_convs(det, img, n_target: int = 4,
             conv.weight.mul_(g[:, None, None, None])
             conv.bias.mul_(g)
     return True
+
+
+def calibrate_crop_output_conv(det, crops) -> None:
+    """Rescale a face or hand detector's last-stage output conv in place,
+    so a weightless crop net gives keypoints on both sides of the
+    threshold (a random net's maps peak near 1e-3, far below it).
+
+    ``det``: a ``tpupose_torch`` FaceDetector or HandDetector (float32);
+    ``crops``: HWC uint8 crops.  Keypoint channel j is scaled so its
+    largest value over the crops' last-stage maps becomes
+    ``heatmap_peak_thresh * u_j``, the u_j spread evenly over [0.5, 4] in
+    a seeded order; the background channel stays.  Exact and linear, as
+    ``calibrate_output_convs``."""
+    stage = f"stage{det.model.num_stages}"
+    conv = getattr(getattr(det.model, stage), f"Mconv7_{stage}").conv
+    maps = det.forward_maps(det.prepare_crops(crops, [False] * len(crops)))
+    peak = maps[-1].abs().amax(dim=(0, 1, 2)).cpu().numpy()
+    c = peak.shape[0] - 1
+    u = np.linspace(0.5, 4.0, c)[np.random.RandomState(0).permutation(c)]
+    gain = np.ones(peak.shape[0], np.float32)
+    gain[:c] = det.cfg.heatmap_peak_thresh * u / np.maximum(peak[:c], 1e-12)
+    with torch.no_grad():
+        g = torch.from_numpy(gain).to(conv.weight.device)
+        conv.weight.mul_(g[:, None, None, None])
+        conv.bias.mul_(g)
