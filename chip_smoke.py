@@ -54,7 +54,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    50 conv7 ones and no requant, and, per pyramid scale, the card's int8
    maps bit-equal to the CPU's int8 forward on the same tree.
 
-After each driven path (3, 5, 6, 8 and phase 7's im2col forward), every
+After each driven path (3, 5, 6, 8, 9 and phase 7's im2col forward), every
 kernel is held against its plain version, bit-equal, on seeded random
 inputs at every shape the path gave it (the wrappers' ``shapes``
 counters).
@@ -91,9 +91,30 @@ counters).
    Phase 6 also checks ``detect_precise`` against ``__call__``.  Prints
    the crop forwards' times (CUDA events, B = 1 and 8) and
    ``detect_batch``'s host time per crop.
+9. Drive the serving path (``apps/serve.py``, ``serving.py``,
+   ``detectors/bucketed.py``) with raw ``application/octet-stream``
+   requests to ``make_server`` servers on port 0: over the f32 and the
+   quantized fast detectors, ``/v1/detect`` equal to ``__call__``,
+   ``/v1/detect_batch`` (B = 3) equal to ``detect_batch``, 4 client threads
+   over 480x640 and 360x480 frames equal to sequential replies, and 1
+   blur_nms (+ 50 conv7 and 30 conv_s8 on int8) launches per request; over
+   ``BucketedPoseDetector(f32, canvas_palette(640))``, 375x500, 426x640
+   and 480x480 frames equal to in-process bucketing and a batch of 3
+   same-size frames in one wrapped ``detect_batch``; then
+   ``save_bundle(..., platforms=("cuda",), batch_sizes=(2,))`` of the
+   fast f32, fast int8 and precise int8 detectors at 480x640, each loaded
+   by ``ServingPoseDetector`` and served: tables equal to the live
+   detector's, B = 2 equal to its ``detect_batch``, the kernels launched
+   inside the programs through the ``tpupose::*`` ops; an int8 FaceNet
+   crop bundle whose keypoints equal the live crop detector's.  After
+   each, every kernel is re-checked at the shapes it recorded.  Prints
+   export and load times, HTTP and in-process latency (medians of 10),
+   requests per second from 4 clients and the phase's seconds, beside
+   the card's name and power limit.
 
 The last two lines are the kernels' JSON record (each kernel's time, plain
-time, bound and launches on the driven paths, the crop nets' included;
+time, bound and launches on the driven paths, the crop nets' and the
+serving phase's, bundles included;
 requant's launches are those of phase 7's im2col forward, the only route
 that runs it) and the result line.
 """
@@ -102,6 +123,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -930,7 +952,8 @@ def run_quantized(f32_det, cfg, frames):
 
 def run_precise(f32_det, cfg, frames):
     """Phase 6 on two frames; returns the launch counts over both precise
-    detectors and ``(f32 ms, int8 ms)`` per ``__call__``."""
+    detectors, ``(f32 ms, int8 ms)`` per ``__call__`` and the quantized
+    precise detector."""
     import numpy as np
     import torch
 
@@ -1020,7 +1043,7 @@ def run_precise(f32_det, cfg, frames):
         if quantized:
             _precise_int8_vs_cpu(det, frames[0])
         call_ms.append(_host_ms(lambda: det(frames[0]), 3))
-    return totals, tuple(call_ms)
+    return totals, tuple(call_ms), det
 
 
 def _precise_int8_vs_cpu(det, frame):
@@ -1305,7 +1328,8 @@ def _crop_sets(frames, cascade_faces, cascade_hands):
 
 def run_crop_nets(f32_det, cfg, frames):
     """Phase 8: the face and hand detectors behind the demo cascade, f32
-    and int8.  Returns the kernel launches counted over its main path."""
+    and int8.  Returns the kernel launches counted over its main path and
+    the quantized face detector."""
     import numpy as np
     import torch
 
@@ -1440,7 +1464,7 @@ def run_crop_nets(f32_det, cfg, frames):
     print(f"crop nets: {excused} keypoint channels excused in all; card vs "
           f"CPU checks {t_cpu:.2f} s, phase 8 so far "
           f"{time.perf_counter() - t_phase:.2f} s")
-    return counts
+    return counts, face
 
 
 def _f32_view(det):
@@ -1607,6 +1631,332 @@ def check_tiny_frames(cfg, frames):
           f"on the fast, precise and int8 paths, __call__ and detect_batch")
 
 
+# --- phase 9: the serving path --------------------------------------------
+
+SERVE_OTHER_HW = (360, 480)      # the concurrency check's second frame size
+BUCKET_SIZES = ((375, 500), (426, 640), (480, 480))   # off canvas_palette
+
+
+class _Served:
+    """HTTP servers (``apps/serve.py::make_server`` on port 0), each in a
+    thread; ``close()`` stops them all."""
+
+    def __init__(self):
+        self.servers = []
+
+    def start(self, detector, **kw):
+        import threading
+
+        from tpupose_torch.apps.serve import make_server
+
+        server = make_server(detector, port=0, **kw)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        self.servers.append((server, thread))
+        host, port = server.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def close(self):
+        for server, thread in self.servers:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        self.servers = []
+
+
+def _clients(url, frames, clients: int = 4):
+    """``clients`` threads, each POSTing its share of ``frames`` in turn;
+    returns (replies in frame order, wall seconds)."""
+    import threading
+
+    from tpupose_torch.apps.serve import detect_over_http
+
+    replies = [None] * len(frames)
+    errors = []
+
+    def run(k):
+        try:
+            for i in range(k, len(frames), clients):
+                replies[i] = detect_over_http(url, frames[i])
+        except Exception as e:       # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(r is None for r in replies):
+        raise AssertionError(f"concurrent clients failed: {errors[:1]}")
+    return replies, wall
+
+
+def _http_vs_call(label, url, det, frame, numbers, iters: int = 10):
+    """Median host ms of one request over HTTP and of the same detector's
+    in-process ``__call__``, in turns."""
+    from tpupose_torch.apps.serve import detect_over_http
+
+    http, call = [], []
+    detect_over_http(url, frame)
+    det(frame)
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        detect_over_http(url, frame)
+        http.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        det(frame)
+        call.append((time.perf_counter() - t0) * 1e3)
+    numbers[f"{label}_http_ms"] = statistics.median(http)
+    numbers[f"{label}_call_ms"] = statistics.median(call)
+
+
+def _rps(label, url, frames, numbers, requests: int = 16):
+    _, wall = _clients(url, [frames[i % len(frames)]
+                             for i in range(requests)])
+    numbers[f"{label}_rps_4_clients"] = requests / wall
+
+
+def _serve_live(label, served, det, cfg, frames, other, numbers, per_call):
+    """A live detector behind the server: /v1/detect and /v1/detect_batch
+    equal in-process results, 4 concurrent clients over two frame sizes
+    equal sequential replies; ``per_call``: the kernel launches one
+    request must add.  Returns the launches of its counted run."""
+    from tpupose_torch.apps.serve import (detect_batch_over_http,
+                                          detect_over_http)
+
+    url = served.start(det)
+    mixed = [frames[0], other[0], frames[1], other[1]]
+    want = [det(f) for f in mixed]                   # warms both sizes
+    batch_ref = det.detect_batch(frames)
+    _reset_counts()
+    singles = [detect_over_http(url, f) for f in frames]
+    counts = _read_counts()
+    shapes = _read_shapes()
+    batched = detect_batch_over_http(url, frames)
+    replies, _ = _clients(url, mixed)
+    totals = _read_counts()
+    for i, f in enumerate(frames):
+        if not _same_tables(singles[i], det(f), 0.0):
+            raise AssertionError(f"{label} server: /v1/detect frame {i} != "
+                                 f"__call__")
+    if not all(_same_tables(g, r, 0.0) for g, r in zip(batched, batch_ref)):
+        raise AssertionError(f"{label} server: /v1/detect_batch != "
+                             f"detect_batch")
+    if not all(_same_tables(g, r, 0.0) for g, r in zip(replies, want)):
+        raise AssertionError(f"{label} server: concurrent replies != "
+                             f"sequential")
+    grown = {k: counts[k] for k in ("conv7_s8", "conv_s8", "blur_nms")}
+    expect = {k: v * len(frames) for k, v in per_call.items()}
+    if grown != expect:
+        raise AssertionError(f"{label} server: {len(frames)} requests "
+                             f"launched {grown}, not {expect}")
+    check_path_shapes(f"{label} server", cfg, shapes)
+    _http_vs_call(f"live_{label}", url, det, frames[0], numbers)
+    _rps(f"live_{label}", url, mixed, numbers)
+    print(f"{label} server: /v1/detect x{len(frames)} and /v1/detect_batch "
+          f"B = {len(frames)} equal in-process (poses "
+          f"{[len(p) for p, _ in singles]}), 4 clients over "
+          f"{frames.shape[1:3]} and {other.shape[1:3]} equal sequential; "
+          f"launches per request {per_call}")
+    return totals
+
+
+def _serve_bucketed(served, f32_det, cfg, numbers):
+    """``--geometry bucket`` semantics over the f32 detector: the palette's
+    off-canvas sizes over HTTP equal in-process bucketing, and a batch of
+    same-size frames calls the wrapped ``detect_batch`` once."""
+    import numpy as np
+
+    from tpupose_torch.apps.serve import (detect_batch_over_http,
+                                          detect_over_http)
+    from tpupose_torch.detectors.bucketed import (BucketedPoseDetector,
+                                                  canvas_palette)
+
+    rng = np.random.RandomState(9)
+    frames = [rng.randint(0, 256, (*hw, 3)).astype(np.uint8)
+              for hw in BUCKET_SIZES]
+    bdet = BucketedPoseDetector(f32_det, canvases=canvas_palette(640))
+    want = [bdet(f) for f in frames]
+    url = served.start(bdet)
+    _reset_counts()
+    got = [detect_over_http(url, f) for f in frames]
+    counts = _read_counts()
+    shapes = _read_shapes()
+    for hw, g, w in zip(BUCKET_SIZES, got, want):
+        if not _same_tables(g, w, 0.0):
+            raise AssertionError(f"bucketed {hw}: HTTP != in-process")
+    calls = []
+    live = f32_det.detect_batch
+
+    def counted(imgs):
+        calls.append(np.asarray(imgs).shape)
+        return live(imgs)
+
+    f32_det.detect_batch = counted
+    try:
+        same = [frames[0]] * 3
+        batch_ref = bdet.detect_batch(same)
+        batched = detect_batch_over_http(url, same)
+    finally:
+        del f32_det.detect_batch
+    if calls != [(3, 480, 640, 3)] * 2:
+        raise AssertionError(f"bucketed detect_batch called the wrapped "
+                             f"detect_batch as {calls}")
+    if not all(_same_tables(g, r, 0.0) for g, r in zip(batched, batch_ref)):
+        raise AssertionError("bucketed /v1/detect_batch != detect_batch")
+    check_path_shapes("bucketed server", cfg, shapes)
+    print(f"bucketed server (canvas_palette(640)): {list(BUCKET_SIZES)} on "
+          f"canvases {[bdet._place(f)[0].shape[:2] for f in frames]} equal "
+          f"in-process, poses {[len(p) for p, _ in got]}; a batch of 3 "
+          f"same-size frames: one wrapped detect_batch {calls[0]}")
+    return counts
+
+
+def _serve_bundle(label, served, det, path, frames, numbers, per_call,
+                  timed):
+    """Export ``det`` (480x640, B = 2, CUDA), load it, serve it: tables and
+    batched results equal the live detector's, every kernel re-checked at
+    the shapes the bundle gave it.  Returns the counted launches."""
+    from tpupose_torch.apps.serve import (detect_batch_over_http,
+                                          detect_over_http)
+    from tpupose_torch.serving import ServingPoseDetector, save_bundle
+
+    t0 = time.perf_counter()
+    save_bundle(det, path, [tuple(frames.shape[1:3])], platforms=("cuda",),
+                batch_sizes=(2,))
+    t1 = time.perf_counter()
+    srv = ServingPoseDetector(path)
+    t2 = time.perf_counter()
+    numbers[f"bundle_{label}_export_s"] = t1 - t0
+    numbers[f"bundle_{label}_load_s"] = t2 - t1
+    url = served.start(srv)
+    want = [det(f) for f in frames[:2]]
+    batch_ref = det.detect_batch(frames[:2])
+    detect_over_http(url, frames[0])                    # first sight
+    _reset_counts()
+    got = [detect_over_http(url, f) for f in frames[:2]]
+    counts = _read_counts()
+    shapes = _read_shapes()
+    batched = detect_batch_over_http(url, frames[:2])
+    totals = _read_counts()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not _same_tables(g, w, 0.0):
+            raise AssertionError(f"bundle {label} frame {i}: tables != the "
+                                 f"live detector's")
+    if not all(_same_tables(g, r, 0.0) for g, r in zip(batched, batch_ref)):
+        raise AssertionError(f"bundle {label}: detect_batch != the live "
+                             f"detector's")
+    grown = {k: counts[k] for k in per_call}
+    expect = {k: v * 2 for k, v in per_call.items()}
+    if grown != expect:
+        raise AssertionError(f"bundle {label}: 2 requests launched {grown}, "
+                             f"not {expect}")
+    check_path_shapes(f"bundle {label}", det.cfg, shapes)
+    if timed:
+        _http_vs_call(f"bundle_{label}", url, srv, frames[0], numbers)
+        _rps(f"bundle_{label}", url, frames, numbers)
+    print(f"bundle {label}: export {t1 - t0:.2f} s, load {t2 - t1:.2f} s, "
+          f"{len(os.listdir(path))} files; over HTTP tables equal the live "
+          f"detector's (poses {[len(p) for p, _ in got]}), B = 2 equal its "
+          f"detect_batch; launches per request {per_call}")
+    return totals
+
+
+def _serve_crop_bundle(face, path, cfg, frames, numbers):
+    """An int8 FaceNet crop bundle at one crop size: keypoints over HTTP
+    and in-process equal the live crop detector's."""
+    from tpupose_torch.apps.serve import detect_crops_over_http
+    from tpupose_torch.serving import ServingCropDetector, save_crop_bundle
+
+    l, t, r, b = FIXED_FACE_BOXES[0]
+    crops = [f[t:b, l:r].copy() for f in frames[:2]]
+    t0 = time.perf_counter()
+    save_crop_bundle(face, path, [crops[0].shape[:2]], batch_sizes=(1, 2),
+                     flips=(False,), platforms=("cuda",))
+    t1 = time.perf_counter()
+    srv = ServingCropDetector(path)
+    t2 = time.perf_counter()
+    numbers["crop_bundle_int8_export_s"] = t1 - t0
+    numbers["crop_bundle_int8_load_s"] = t2 - t1
+    want = face.detect_crops(crops)
+    served = _Served()
+    try:
+        url = served.start(srv)
+        _reset_counts()
+        got = detect_crops_over_http(url, crops)
+        counts = _read_counts()
+        shapes = _read_shapes()
+    finally:
+        served.close()
+    if got != want or srv.detect_crops(crops) != want:
+        raise AssertionError("int8 face crop bundle: keypoints != the live "
+                             "crop detector's")
+    if (counts["conv7_s8"], counts["conv_s8"]) != (25, 21):
+        raise AssertionError(f"int8 face crop bundle launched {counts}")
+    check_path_shapes("crop bundle", cfg, shapes)
+    print(f"int8 face crop bundle {crops[0].shape[:2]}: export "
+          f"{t1 - t0:.2f} s, load {t2 - t1:.2f} s; keypoints over HTTP "
+          f"equal the live detector's "
+          f"({sum(k is not None for row in got for k in row)} found)")
+    return counts
+
+
+def run_serving(f32_det, qdet, pdet, face, cfg, frames, smi):
+    """Phase 9: ``apps/serve.py`` over the live f32 and int8 detectors and
+    over bucketing, then ``torch.export`` bundles (fast f32, fast int8,
+    precise int8, an int8 face crop bundle) served over HTTP.  Returns the
+    kernel launches of its counted runs."""
+    import numpy as np
+    import shutil
+    import tempfile
+
+    from tpupose_torch.ops import _cuda_build
+
+    t_phase = time.perf_counter()
+    numbers = {}
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    rng = np.random.RandomState(5)
+    other = rng.randint(0, 256, (2, *SERVE_OTHER_HW, 3)).astype(np.uint8)
+    os.makedirs(_cuda_build.BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="bundles-", dir=_cuda_build.BUILD_DIR)
+    served = _Served()
+    int8_call = {"conv7_s8": 50, "conv_s8": 30, "blur_nms": 1}
+    f32_call = {"conv7_s8": 0, "conv_s8": 0, "blur_nms": 1}
+    try:
+        add(_serve_live("f32", served, f32_det, cfg, frames, other, numbers,
+                        f32_call))
+        add(_serve_live("int8", served, qdet, cfg, frames, other, numbers,
+                        int8_call))
+        add(_serve_bucketed(served, f32_det, cfg, numbers))
+        served.close()
+        for label, det, per_call, timed in (
+                ("f32", f32_det, f32_call, True),
+                ("int8", qdet, int8_call, True),
+                ("precise_int8", pdet, {"conv7_s8": 200, "conv_s8": 120,
+                                        "blur_nms": 1}, False)):
+            add(_serve_bundle(label, served, det, os.path.join(root, label),
+                              frames, numbers, per_call, timed))
+            served.close()
+        add(_serve_crop_bundle(face, os.path.join(root, "face"), cfg,
+                               frames, numbers))
+    finally:
+        served.close()
+        shutil.rmtree(root, ignore_errors=True)
+    numbers["phase9_s"] = time.perf_counter() - t_phase
+    print(f"phase 9 serving numbers ({smi}; host clock, medians of 10; "
+          f"rps: 16 requests from 4 client threads): "
+          + json.dumps({k: round(v, 4) for k, v in numbers.items()}))
+    return totals
+
+
 def _start_resource_report(name):
     """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu`` (registers, shared
     memory and spills of each kernel); returns (process, cubin path)."""
@@ -1687,18 +2037,20 @@ def main() -> int:
     int8_kernels, conv7_grids = check_int8_kernels()
     int8_kernels["conv_s8"], conv_s8_layers = check_conv_s8()
     quant_counts, qdet, x = run_quantized(f32_det, cfg, frames)
-    precise_counts, precise_ms = run_precise(f32_det, cfg, frames)
+    precise_counts, precise_ms, pdet = run_precise(f32_det, cfg, frames)
     im2col_counts = split_int8(qdet, x, frames[0], precise_ms, conv7_grids,
                                conv_s8_layers)
     profile_blur_nms(f32_det, cfg, frames[0])
     t0 = time.perf_counter()
-    crop_counts = run_crop_nets(f32_det, cfg, frames)
+    crop_counts, face = run_crop_nets(f32_det, cfg, frames)
     t1 = time.perf_counter()
     check_crop_kernels(cfg)
     t2 = time.perf_counter()
     check_tiny_frames(cfg, frames)
     print(f"phase 8: crop nets {t1 - t0:.2f} s, kernels {t2 - t1:.2f} s, "
           f"tiny frames {time.perf_counter() - t2:.2f} s")
+    serving_counts = run_serving(f32_det, qdet, pdet, face, cfg, frames,
+                                 smi.stdout.strip())
 
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "cv2", "tpupose")]
@@ -1706,7 +2058,8 @@ def main() -> int:
         raise AssertionError(f"the port imported {leaked[:4]}")
     # launches: the sum over the driven paths, each counted from zero
     launches = {name: quant_counts[name] + precise_counts[name]
-                + crop_counts[name] for name in quant_counts}
+                + crop_counts[name] + serving_counts[name]
+                for name in quant_counts}
     launches["blur_nms"] += fast_launches
     # requant runs on the im2col route only: its launches are those of
     # phase 7's im2col forward

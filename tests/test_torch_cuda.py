@@ -541,3 +541,114 @@ def test_detect_precise_equals_call_on_the_card(cuda_device):
     got, ref = det.detect_precise(frame), det(frame)
     np.testing.assert_array_equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])
+
+
+# --- the serving path: custom ops and bundles on the card -------------------
+
+
+def test_custom_ops_equal_their_wrappers_on_the_card(cuda_device):
+    """Each ``tpupose::*`` kernel op launches its wrapper's kernel (counted
+    by the wrapper) and equals the wrapper bit for bit."""
+    from tpupose_torch.ops import library  # noqa: F401  registers the ops
+
+    ops = torch.ops.tpupose
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(_planted(rng, 18, 46, 62)).to(cuda_device)
+    before = bn.blur_nms.launches
+    got, ref = ops.blur_nms(x, 2.5, 0.05), bn.blur_nms(x, 2.5, 0.05)
+    assert bn.blur_nms.launches == before + 2
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+    parts, kernels, mults, bias = _conv7_case(rng, 1, 23, 31, MCONV1,
+                                              cuda_device)
+    packed = [c7.pack_conv7_weights(k) for k in kernels]
+    before = c7.conv7_s8.launches
+    got = ops.conv7_s8(parts, kernels, mults, bias, True, packed)
+    assert c7.conv7_s8.launches == before + 1
+    assert torch.equal(got, c7.conv7_s8(parts, kernels, mults, bias,
+                                        packed=packed))
+
+    xq, kq, mult, bias = _conv_s8_case(rng, 1, 46, 62, 128, 128, 3,
+                                       cuda_device)
+    before = cs.conv_s8.launches
+    got = ops.conv_s8(xq, kq, mult, bias, True, cs.pack_conv_s8_weights(kq))
+    assert cs.conv_s8.launches == before + 1
+    assert torch.equal(got, cs.conv_s8(xq, kq, mult, bias))
+
+    accs = [torch.from_numpy(rng.randint(-2**20, 2**20, (1, 46, 62, 64))
+                             .astype(np.int32)).to(cuda_device)
+            for _ in range(2)]
+    rmults = [torch.full((64,), 1e-5, device=cuda_device)] * 2
+    rbias = torch.zeros(64, device=cuda_device)
+    before = rq.requant_epilogue.launches
+    got = ops.requant_epilogue(accs, rmults, rbias, True, 0.0)
+    assert rq.requant_epilogue.launches == before + 1
+    assert torch.equal(got, rq.requant_epilogue(accs, rmults, rbias, True))
+    torch.cuda.synchronize()
+
+
+def test_fold_and_matcher_ops_equal_their_functions_on_the_card(
+        cuda_device):
+    from tpupose_torch.config import LIMBS_FROM, LIMBS_TO
+    from tpupose_torch.ops import library
+    from tpupose_torch.ops.grouping import group_keypoints
+    from tpupose_torch.ops.paf import compute_connections, greedy_match
+    from tpupose_torch.ops.peaks import find_peaks
+
+    cfg = InferenceConfig(img_size=96, heatmap_size=88, max_subsets=128,
+                          n_subset_limbs_thresh=2, subset_score_thresh=0.05)
+    frame = np.random.RandomState(0).randint(0, 256, (96, 128, 3)).astype(
+        np.uint8)
+    det = PoseDetector(cfg=cfg, device=cuda_device, seed=0)
+    assert calibrate_output_convs(det, frame)
+    (paf, hm), _ = det.compute_maps(frame)
+    with torch.no_grad():
+        peaks = find_peaks(hm[:-1], cfg.gaussian_sigma,
+                           cfg.heatmap_peak_thresh, cfg.max_peaks_per_joint)
+        conns = compute_connections(paf, peaks, paf.shape[-1], cfg,
+                                    LIMBS_FROM, LIMBS_TO)
+        with library.traced_ops():
+            folded = library.group_keypoints(conns, peaks, cfg)
+        ref = group_keypoints(conns, peaks, cfg)
+        score = torch.rand(19, 32, 32, device=cuda_device)
+        valid = score > 0.3
+        n_a, n_b = valid.any(dim=2).sum(dim=1), valid.any(dim=1).sum(dim=1)
+        got_m = torch.ops.tpupose.greedy_match(score, valid, n_a, n_b)
+        ref_m = greedy_match(score, valid, n_a, n_b)
+    assert all(torch.equal(g, r) for g, r in zip(folded, ref))
+    assert int(ref.valid.sum()) >= 1
+    assert all(torch.equal(g, r) for g, r in zip(got_m, ref_m))
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_cuda_bundle_equals_live_detector(cuda_device, mode, tmp_path):
+    """A CUDA bundle exported and loaded in this process gives the live
+    detector's pose tables and batched results, and its int8 program runs
+    conv7 and conv_s8 through their ops (50 and 30 launches a forward)."""
+    from tpupose_torch.serving import ServingPoseDetector, save_bundle
+
+    cfg = InferenceConfig(img_size=96, heatmap_size=88, max_subsets=128,
+                          n_subset_limbs_thresh=2, subset_score_thresh=0.05)
+    frames = np.random.RandomState(0).randint(
+        0, 256, (2, 96, 128, 3)).astype(np.uint8)
+    det = PoseDetector(cfg=cfg, device=cuda_device, seed=0)
+    assert calibrate_output_convs(det, frames[0])
+    if mode == "int8":
+        det.quantize([frames[0], frames[0][:, ::-1]])
+    save_bundle(det, str(tmp_path), [(96, 128)], platforms=("cuda",),
+                batch_sizes=(2,))
+    srv = ServingPoseDetector(str(tmp_path))
+    launches = (c7.conv7_s8.launches, cs.conv_s8.launches,
+                bn.blur_nms.launches)
+    got = srv(frames[0])
+    torch.cuda.synchronize()
+    grew = [c7.conv7_s8.launches - launches[0],
+            cs.conv_s8.launches - launches[1],
+            bn.blur_nms.launches - launches[2]]
+    assert grew == ([50, 30, 1] if mode == "int8" else [0, 0, 1])
+    ref = det(frames[0])
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    for g, r in zip(srv.detect_batch(frames), det.detect_batch(frames)):
+        np.testing.assert_array_equal(g[0], r[0])
+        np.testing.assert_array_equal(g[1], r[1])

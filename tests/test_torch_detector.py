@@ -114,13 +114,15 @@ def test_detect_batch_equals_call(detectors):
 def test_import_leaves_out_jax_flax_and_cv2():
     """The port's modules import nothing of JAX, Flax, cv2 or the JAX
     package ``tpupose``, not even its jax-free modules; the crop detectors,
-    the drawing and the demo import cv2 only inside the functions that
-    draw or read files."""
+    the drawing, the demo and the serving apps import cv2 only inside the
+    functions that draw, read files or decode encoded request bodies."""
     code = ("import sys, tpupose_torch.detectors.pose, "
             "tpupose_torch.utils.calibrate, tpupose_torch.quant, "
             "tpupose_torch.weights, tpupose_torch.detectors.face, "
             "tpupose_torch.detectors.hand, tpupose_torch.detectors.draw, "
-            "tpupose_torch.apps.demo; "
+            "tpupose_torch.apps.demo, tpupose_torch.serving, "
+            "tpupose_torch.apps.serve, tpupose_torch.apps.export_serving, "
+            "tpupose_torch.detectors.bucketed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'cv2', 'tpupose')]; "
             "assert not bad, bad")

@@ -14,6 +14,10 @@ back to the host in one device-to-host copy.
 
 ``quantize()`` swaps the network forward for the w8a8 int8 one of
 ``tpupose_torch/quant.py`` (input quant ``u8 - 128``, scale 1/256).
+
+``_batch_forward_fn`` and ``_tail_fn`` are the two programs a crop bundle
+exports (``tpupose_torch/serving.py::save_crop_bundle``); the live
+``submit_crops`` runs the same bodies with the detector's own weights.
 """
 
 from __future__ import annotations
@@ -22,14 +26,15 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from tpupose_torch.detectors.pose import float32_numerics
 from tpupose_torch.models import ARCHS
 from tpupose_torch.ops.peaks import global_argmax_keypoints
 from tpupose_torch.ops.resize import resize_chainer, resize_u8_linear
 from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
-                                 qtree_to_device, quantize,
-                                 resolve_conv7_impl)
+                                 model_params, qtree_to_device, quant_apply,
+                                 quantize, resolve_conv7_impl)
 from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
                                    warn_on_load_report)
 
@@ -115,6 +120,36 @@ class CropKeypointDetector:
             resize_u8_linear(np.asarray(c)[:, ::-1] if f else np.asarray(c),
                              (size, size)) for c, f in zip(crops, flips)])
 
+    def host_weights(self):
+        """The weights as host data: the Flax param tree of a float32
+        detector, the numpy int8 tree of a quantized one."""
+        if self.quantized:
+            return self.qtree
+        return {"params": model_params(self.model)}
+
+    def program_weights(self, device=None):
+        """The weights as a traced program takes them, on ``device``
+        (default: the detector's): ``state_dict``, or the quantized
+        ``qtree_to_device`` tree, packed on the kernel route."""
+        device = torch.device(device or self.device)
+        if self.quantized:
+            return qtree_to_device(self.qtree, self.quant_static, device,
+                                   pack_kernels=self.conv7_impl == "kernel")
+        return {k: v.detach().to(device)
+                for k, v in self.model.state_dict().items()}
+
+    def _net(self, x: torch.Tensor, weights=None) -> torch.Tensor:
+        """Every stage's heatmaps of normalized crops; ``weights`` as in
+        ``program_weights``, or None for the detector's own."""
+        if self._quant_forward is not None:
+            if weights is None:
+                return self._quant_forward(x)
+            return quant_apply(self.quant_static, weights, x,
+                               self.conv7_impl)
+        if weights is None:
+            return self.model(x)
+        return functional_call(self.model, weights, (x,))
+
     def forward_maps(self, imgs_u8: np.ndarray) -> torch.Tensor:
         """(B, S, S, 3) uint8 network inputs -> every stage's heatmaps
         (stages, B, S/8, S/8, C) on the detector's device: the int8 forward
@@ -122,9 +157,17 @@ class CropKeypointDetector:
         with float32_numerics(), torch.no_grad():
             x = preprocess_crops_u8(torch.from_numpy(
                 np.ascontiguousarray(imgs_u8)).to(self.device))
-            if self._quant_forward is not None:
-                return self._quant_forward(x)
-            return self.model(x)
+            return self._net(x)
+
+    def _batch_forward_fn(self):
+        """The crop forward program: ``(weights, imgs_u8)``, (B, S, S, 3)
+        uint8 network inputs -> the last stage's (B, S/8, S/8, C)
+        heatmaps."""
+
+        def fn(weights, imgs_u8):
+            return self._net(preprocess_crops_u8(imgs_u8), weights)[-1]
+
+        return fn
 
     def _tail_target(self, crop_hw: Tuple[int, int]):
         """Tail-resize target (== crop size at stride 1) and the coordinate
@@ -138,16 +181,30 @@ class CropKeypointDetector:
         return (th, tw), ((w - 1) / max(tw - 1, 1),
                           (h - 1) / max(th - 1, 1))
 
-    def tail_maps(self, hm: torch.Tensor, target_hw: Tuple[int, int],
+    @staticmethod
+    def tail_maps(hm: torch.Tensor, target_hw: Tuple[int, int],
                   flip: bool) -> torch.Tensor:
         """One crop's last-stage heatmaps (h, w, C) -> the (C - 1, th, tw)
         maps its keypoints are taken from: resized to ``target_hw``,
-        un-mirrored if the input was, background dropped."""
-        with float32_numerics(), torch.no_grad():
-            hm = resize_chainer(hm, target_hw)
-            if flip:
-                hm = torch.flip(hm, dims=(1,))
-            return hm.permute(2, 0, 1)[:-1]
+        un-mirrored if the input was, background dropped.  The resize is a
+        matmul: run it inside ``float32_numerics()``."""
+        hm = resize_chainer(hm, target_hw)
+        if flip:
+            hm = torch.flip(hm, dims=(1,))
+        return hm.permute(2, 0, 1)[:-1]
+
+    def _tail_fn(self, target_hw: Tuple[int, int], flip: bool):
+        """A crop tail's program: one crop's last-stage heatmaps (h, w, C)
+        -> its (4, C - 1) rows of x, y, score and valid, as float32
+        (coordinates are exact in float32 below 2^24)."""
+
+        def fn(hm):
+            x, y, score, valid = global_argmax_keypoints(
+                self.tail_maps(hm, target_hw, flip),
+                self.cfg.gaussian_sigma, self.cfg.heatmap_peak_thresh)
+            return torch.stack([x.float(), y.float(), score, valid.float()])
+
+        return fn
 
     def submit_crops(self, crops, flips=None):
         """Queue the batched forward and every crop's tail without a
@@ -167,15 +224,10 @@ class CropKeypointDetector:
         """The per-crop tails of ``submit_crops`` on last-stage heatmaps
         (B, h, w, C) already computed for crops of sizes ``crop_hws``."""
         rows, scales = [], []
-        with torch.no_grad():
+        with float32_numerics(), torch.no_grad():
             for hm, crop_hw, flip in zip(heatmaps, crop_hws, flips):
                 target_hw, scale = self._tail_target(crop_hw)
-                x, y, score, valid = global_argmax_keypoints(
-                    self.tail_maps(hm, target_hw, flip),
-                    self.cfg.gaussian_sigma, self.cfg.heatmap_peak_thresh)
-                # coordinates are exact in float32 below 2^24
-                rows.append(torch.stack([x.float(), y.float(), score,
-                                         valid.float()]))
+                rows.append(self._tail_fn(target_hw, flip)(hm))
                 scales.append(scale)
         return torch.stack(rows), scales
 

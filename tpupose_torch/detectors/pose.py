@@ -19,6 +19,13 @@ scales' maps are averaged and postprocessed there.
 ``quantize()`` swaps the network forward for the int8 one of
 ``tpupose_torch/quant.py``; everything around it stays.
 
+The traced programs that ``tpupose_torch/serving.py`` exports are built here
+(``_fast_fn``, ``_batch_fn``, ``_device_scale_fn``, ``_batch_scale_fn``,
+``_avg_postprocess_fn``, ``_batch_avg_postprocess_fn``, the JAX package's
+names): each takes the weights as tensors (``program_weights``) and the
+uint8 frame(s) and runs the same bodies as the live paths, which pass no
+weights and use the detector's own.
+
 Numerics: convs run with cuDNN's TF32 off and matmuls at
 ``"highest"`` float32 precision; TF32 keeps ~3 decimal digits, enough to
 move peak coordinates.
@@ -33,6 +40,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from tpupose_torch.config import INFERENCE, NUM_JOINTS, InferenceConfig
 from tpupose_torch.models import ARCHS
@@ -40,8 +48,8 @@ from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
                                       resize_cv2_cubic, resize_u8_linear)
 from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
-                                 qtree_to_device, quantize,
-                                 resolve_conv7_impl)
+                                 model_params, qtree_to_device, quant_apply,
+                                 quantize, resolve_conv7_impl)
 from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
                                    warn_on_load_report)
 
@@ -64,6 +72,12 @@ def float32_numerics():
             yield
     finally:
         torch.set_float32_matmul_precision(old)
+
+
+def stack_results(results: List[PoseResult]) -> PoseResult:
+    """Per-frame ``PoseResult``s -> one with a leading batch axis on every
+    field (a batched program's output)."""
+    return PoseResult(*(torch.stack(fields) for fields in zip(*results)))
 
 
 def results_to_host(results: List[PoseResult]) -> List[PoseResult]:
@@ -212,14 +226,54 @@ class PoseDetector:
         self.conv7_impl = conv7_impl
         self._quant_min_side = min_side or 0
 
-    def _forward(self, x: torch.Tensor):
+    def _forward(self, x: torch.Tensor, weights=None):
         """Network forward on normalized (B, H, W, 3) frames: the int8 one
         once quantized (unless the short side is below ``min_side``), else
-        the float32 model."""
+        the float32 model.  ``weights``: a traced program's weight inputs
+        (``program_weights``' layout), or None for the detector's own."""
         if (self._quant_forward is not None
                 and min(x.shape[1], x.shape[2]) >= self._quant_min_side):
-            return self._quant_forward(x)
-        return self.model(x)
+            if weights is None:
+                return self._quant_forward(x)
+            return quant_apply(self.quant_static, weights, x,
+                               self.conv7_impl)
+        if weights is None:
+            return self.model(x)
+        return functional_call(
+            self.model, weights["f32"] if self.quantized else weights, (x,))
+
+    def host_weights(self):
+        """The weights as host data: a float32 detector's Flax param tree
+        (numpy HWIO kernels, ``quant.model_params``); a quantized one's
+        numpy int8 tree, with the float32 tree under ``"f32"`` when
+        ``min_side`` keeps some forwards in float32 (the JAX package's
+        mixed tree)."""
+        if not self.quantized:
+            return {"params": model_params(self.model)}
+        tree = dict(self.qtree)
+        if self._quant_min_side:
+            tree["f32"] = {"params": model_params(self.model)}
+        return tree
+
+    def program_weights(self, device=None):
+        """The weights as a traced program takes them, on ``device``
+        (default: the detector's): a float32 detector's ``state_dict``; a
+        quantized one's ``qtree_to_device`` tree, packed for the kernels on
+        the kernel route, plus ``"f32"``, the ``state_dict``, when
+        ``min_side`` is set."""
+        device = torch.device(device or self.device)
+
+        def state(model):
+            return {k: v.detach().to(device)
+                    for k, v in model.state_dict().items()}
+
+        if not self.quantized:
+            return state(self.model)
+        tree = qtree_to_device(self.qtree, self.quant_static, device,
+                               pack_kernels=self.conv7_impl == "kernel")
+        if self._quant_min_side:
+            tree["f32"] = state(self.model)
+        return tree
 
     # ------------------------------------------------------------------
     # fast single-scale path
@@ -236,11 +290,41 @@ class PoseDetector:
         """(B, H, W, 3) uint8 network-size frames -> channel-first
         (B, 38, h, w) PAFs and (B, 19, h, w) heatmaps at ``map_hw``."""
         with float32_numerics(), torch.no_grad():
-            x = preprocess_u8(torch.from_numpy(imgs_u8).to(self.device))
-            pafs, heatmaps = self._forward(x)
-            paf = resize_chainer(pafs[-1], map_hw)      # (B, h, w, 38)
-            hm = resize_chainer(heatmaps[-1], map_hw)   # (B, h, w, 19)
+            return self._fast_maps(
+                None, torch.from_numpy(imgs_u8).to(self.device), map_hw)
+
+    def _fast_maps(self, weights, imgs_u8: torch.Tensor,
+                   map_hw: Tuple[int, int]):
+        """The fast path's body up to the maps: (B, H, W, 3) uint8
+        network-size frames on the device -> channel-first PAFs and
+        heatmaps at ``map_hw``."""
+        x = preprocess_u8(imgs_u8)
+        pafs, heatmaps = self._forward(x, weights)
+        paf = resize_chainer(pafs[-1], map_hw)      # (B, h, w, 38)
+        hm = resize_chainer(heatmaps[-1], map_hw)   # (B, h, w, 19)
         return paf.permute(0, 3, 1, 2), hm.permute(0, 3, 1, 2)
+
+    def _fast_fn(self, map_hw: Tuple[int, int]):
+        """The fast-path program: ``(weights, img_u8)``, the (H, W, 3)
+        uint8 frame already resized to the network input -> its
+        ``PoseResult`` at ``map_hw``."""
+
+        def fn(weights, img_u8):
+            paf, hm = self._fast_maps(weights, img_u8[None], map_hw)
+            return self._postprocess(paf[0], hm[0])
+
+        return fn
+
+    def _batch_fn(self, map_hw: Tuple[int, int]):
+        """The batched fast-path program: (B, H, W, 3) uint8 frames -> one
+        ``PoseResult`` with a leading batch axis."""
+
+        def fn(weights, imgs_u8):
+            paf, hm = self._fast_maps(weights, imgs_u8, map_hw)
+            return stack_results([self._postprocess(p, h)
+                                  for p, h in zip(paf, hm)])
+
+        return fn
 
     # ------------------------------------------------------------------
     # precise multi-scale path (device pyramid)
@@ -296,14 +380,65 @@ class PoseDetector:
             out.append(resize_cv2_cubic(m, post_hw))
         return tuple(out)
 
-    def _pyramid_scale_maps(self, imgs_u8, scaled_hw, padded_hw, post_hw):
+    def _pyramid_scale_maps(self, imgs_u8, scaled_hw, padded_hw, post_hw,
+                            weights=None):
         """One pyramid scale: original uint8 frames -> its maps at
         ``post_hw``."""
         x = self._scaled_on_canvas(imgs_u8, scaled_hw, padded_hw) / 255.0 \
             - 0.5
-        pafs, heatmaps = self._forward(x)
+        pafs, heatmaps = self._forward(x, weights)
         return self._scale_tail(pafs[-1], heatmaps[-1], padded_hw,
                                 scaled_hw, post_hw)
+
+    def _device_scale_fn(self, post_hw, scaled_hw, padded_hw):
+        """A precise scale's program: ``(weights, orig_u8)``, the original
+        (H, W, 3) uint8 frame -> the scale's channel-last PAFs and heatmaps
+        at ``post_hw``."""
+
+        def fn(weights, orig_u8):
+            paf, hm = self._pyramid_scale_maps(orig_u8[None], scaled_hw,
+                                               padded_hw, post_hw, weights)
+            return paf[0], hm[0]
+
+        return fn
+
+    def _batch_scale_fn(self, post_hw, scaled_hw, padded_hw):
+        """The batched variant of ``_device_scale_fn``: (B, H, W, 3)."""
+
+        def fn(weights, imgs_u8):
+            return self._pyramid_scale_maps(imgs_u8, scaled_hw, padded_hw,
+                                            post_hw, weights)
+
+        return fn
+
+    @staticmethod
+    def _average(paf_list, hm_list):
+        """The scales' channel-last maps -> their mean, channel-first."""
+        n = len(paf_list)
+        paf = sum(paf_list) / n
+        hm = sum(hm_list) / n
+        return paf.movedim(-1, -3), hm.movedim(-1, -3)
+
+    def _avg_postprocess_fn(self):
+        """The precise path's last program: the scales' (o_h, o_w, C) maps
+        -> their mean -> the ``PoseResult``."""
+
+        def fn(paf_list, hm_list):
+            return self._postprocess(*self._average(paf_list, hm_list))
+
+        return fn
+
+    def _batch_avg_postprocess_fn(self):
+        """The batched variant of ``_avg_postprocess_fn``: lists of
+        (B, o_h, o_w, C) -> one ``PoseResult`` with a leading batch
+        axis."""
+
+        def fn(paf_list, hm_list):
+            paf, hm = self._average(paf_list, hm_list)
+            return stack_results([self._postprocess(p, h)
+                                  for p, h in zip(paf, hm)])
+
+        return fn
 
     def _fused_pyramid_maps(self, imgs_u8, geom_small, geom_large,
                             post_hw):
@@ -362,10 +497,7 @@ class PoseDetector:
                                              post_hw)
                 paf_list.append(paf)
                 hm_list.append(hm)
-            n = len(geoms)
-            paf = sum(paf_list) / n
-            hm = sum(hm_list) / n
-        return paf.permute(0, 3, 1, 2), hm.permute(0, 3, 1, 2)
+            return self._average(paf_list, hm_list)
 
     # ------------------------------------------------------------------
     # entry points

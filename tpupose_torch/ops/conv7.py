@@ -64,8 +64,10 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def im2col_acc_s8(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
     """int8 k x k SAME convolution as one patch matmul: the k*k shifted
-    slices of the zero-padded input concatenated on channels, then one
-    (B*H*W, k*k*C) @ (k*k*C, O) int8 matmul into int32.
+    windows of the zero-padded input laid out on channels (tap ``dy * k +
+    dx``, then channel), then one (B*H*W, k*k*C) @ (k*k*C, O) int8 matmul
+    into int32.  The windows are two ``unfold`` views and one copy, so a
+    traced program holds a handful of nodes per layer, not k*k slices.
 
     xq: (B, H, W, C) int8; kq: (k, k, C, O) int8 (HWIO) -> (B, H, W, O)
     int32, bit-equal to an integer convolution."""
@@ -76,9 +78,10 @@ def im2col_acc_s8(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
     else:
         r = k // 2
         xp = F.pad(xq, (0, 0, r, r, r, r))
-        patches = torch.cat([xp[:, dy:dy + h, dx:dx + w, :]
-                             for dy in range(k) for dx in range(k)],
-                            dim=-1).reshape(b * h * w, k * k * c)
+        # (B, H, W, C, k_dy, k_dx) -> (B, H, W, k_dy, k_dx, C)
+        windows = xp.unfold(1, k, 1).unfold(2, k, 1)
+        patches = windows.permute(0, 1, 2, 4, 5, 3).reshape(b * h * w,
+                                                            k * k * c)
     return int_mm(patches, kq.reshape(k * k * c, o)).reshape(b, h, w, o)
 
 

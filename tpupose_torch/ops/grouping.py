@@ -45,20 +45,35 @@ class Subsets(NamedTuple):
 def group_keypoints(connections: Connections, peaks: Peaks,
                     cfg: InferenceConfig) -> Subsets:
     """Fold all valid connections into subsets."""
-    k = connections.a_slot.shape[1]
-    s_cap = cfg.max_subsets
-    dev = connections.a_slot.device
+    return fold_connections(connections.a_slot, connections.b_slot,
+                            connections.score, connections.valid,
+                            peaks.score, cfg.max_subsets,
+                            cfg.n_subset_limbs_thresh,
+                            cfg.subset_score_thresh)
 
-    flat_valid = connections.valid.reshape(-1)
+
+def fold_connections(a_slot: torch.Tensor, b_slot: torch.Tensor,
+                     conn_scores: torch.Tensor, conn_valid: torch.Tensor,
+                     peak_score: torch.Tensor, max_subsets: int,
+                     n_subset_limbs_thresh, subset_score_thresh) -> Subsets:
+    """:func:`group_keypoints` on the tensors it reads: the connections'
+    (L, K) slots, scores and validity, the peaks' (J, K) scores, and the
+    config's table size and final filter (``ops/library.py`` wraps this as
+    ``tpupose::group_keypoints``)."""
+    k = a_slot.shape[1]
+    s_cap = max_subsets
+    dev = a_slot.device
+
+    flat_valid = conn_valid.reshape(-1)
     # Stable partition: valid connections first, in (limb, greedy) order.
     # The one host sync of the fold: its trip count and visiting order.
     order = torch.argsort((~flat_valid).to(torch.uint8), stable=True)
     host = torch.cat([flat_valid.sum()[None], order]).tolist()
     order = host[1:1 + host[0]]
 
-    a_slot = connections.a_slot.reshape(-1)
-    b_slot = connections.b_slot.reshape(-1)
-    conn_scores = connections.score.reshape(-1)
+    a_slot = a_slot.reshape(-1)
+    b_slot = b_slot.reshape(-1)
+    conn_scores = conn_scores.reshape(-1)
     rows = torch.arange(s_cap, device=dev)
 
     joint_slot = torch.full((s_cap, NUM_JOINTS), -1, dtype=torch.long,
@@ -74,8 +89,8 @@ def group_keypoints(connections: Connections, peaks: Peaks,
         ja, jb = int(LIMBS_FROM[limb]), int(LIMBS_TO[limb])
         ind_a, ind_b = a_slot[idx], b_slot[idx]
         conn_score = conn_scores[idx]
-        peak_score_a = peaks.score[ja][ind_a]
-        peak_score_b = peaks.score[jb][ind_b]
+        peak_score_a = peak_score[ja][ind_a]
+        peak_score_b = peak_score[jb][ind_b]
 
         match = active & ((joint_slot[:, ja] == ind_a)
                           | (joint_slot[:, jb] == ind_b))
@@ -144,8 +159,8 @@ def group_keypoints(connections: Connections, peaks: Peaks,
 
     # Final filter (ref ``pose_detector.py:248``).
     safe_count = torch.clamp(count, min=1.0)
-    keep = (active & (count >= cfg.n_subset_limbs_thresh)
-            & (score / safe_count >= cfg.subset_score_thresh))
+    keep = (active & (count >= n_subset_limbs_thresh)
+            & (score / safe_count >= subset_score_thresh))
     return Subsets(joint_slot=joint_slot, score=score, count=count,
                    valid=keep, spawns_suppressed=n_suppressed)
 

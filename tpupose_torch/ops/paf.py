@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from tpupose_torch.config import InferenceConfig
+from tpupose_torch.ops import library
 from tpupose_torch.ops.peaks import Peaks
 
 
@@ -157,7 +158,7 @@ def compute_connections_from_rows(paf_rows: torch.Tensor, hw, peaks: Peaks,
     score, valid = score_candidates(
         paf_rows, tuple(hw), peaks.x[ia], peaks.y[ia], av,
         peaks.x[ib], peaks.y[ib], bv, img_len, cfg)
-    a_slot, b_slot, score, valid = greedy_match(
+    a_slot, b_slot, score, valid = library.greedy_match(
         score, valid, av.sum(dim=1), bv.sum(dim=1))
     return Connections(a_slot=a_slot, b_slot=b_slot, score=score,
                        valid=valid)

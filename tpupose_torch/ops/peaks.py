@@ -13,8 +13,9 @@ from typing import NamedTuple
 
 import torch
 
-from tpupose_torch.ops.blur_nms import blur_nms, nms_mask  # noqa: F401
+from tpupose_torch.ops.blur_nms import nms_mask  # noqa: F401
 from tpupose_torch.ops.gaussian import gaussian_blur_reflect
+from tpupose_torch.ops.library import blur_nms
 
 
 class Peaks(NamedTuple):
@@ -77,7 +78,8 @@ def find_peaks(heatmaps: torch.Tensor, sigma: float, thresh: float,
 
     heatmaps: (J, H, W) *without* the background channel.  The fused blur +
     NMS runs through :func:`blur_nms`, which picks the CUDA kernel for a CUDA
-    tensor and the plain version for a CPU one; no map-size cut applies.
+    tensor and the plain version for a CPU one (through
+    ``tpupose::blur_nms`` in a traced program); no map-size cut applies.
     """
     if mode == "conv":
         raise ValueError(

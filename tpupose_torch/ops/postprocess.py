@@ -13,7 +13,8 @@ from typing import NamedTuple
 import torch
 
 from tpupose_torch.config import LIMBS_FROM, LIMBS_TO, InferenceConfig
-from tpupose_torch.ops.grouping import group_keypoints, subsets_to_poses
+from tpupose_torch.ops.grouping import subsets_to_poses
+from tpupose_torch.ops.library import group_keypoints
 from tpupose_torch.ops.paf import (compute_connections,
                                    compute_connections_from_rows)
 from tpupose_torch.ops.peaks import find_peaks

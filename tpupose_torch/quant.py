@@ -35,10 +35,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpupose_torch.ops.conv7 import (conv7_s8, im2col_acc_s8,
-                                     pack_conv7_weights)
-from tpupose_torch.ops.conv_s8 import conv_s8, pack_conv_s8_weights
-from tpupose_torch.ops.requant import requant_epilogue, scaled_sum
+from tpupose_torch.ops.conv7 import im2col_acc_s8, pack_conv7_weights
+from tpupose_torch.ops.conv_s8 import pack_conv_s8_weights
+from tpupose_torch.ops.library import conv7_s8, conv_s8, requant_epilogue
+from tpupose_torch.ops.requant import scaled_sum
 
 # ---------------------------------------------------------------------------
 # Architecture graphs (copies of the JAX module's): layer names are the
@@ -469,3 +469,69 @@ def make_quant_apply(static: QuantStatic, qtree, conv7_impl: str = "im2col"):
         return quant_apply(static, qtree, x, conv7_impl)
 
     return apply_fn
+
+
+# ---------------------------------------------------------------------------
+# Flat (npz-compatible) round trip for serving bundles: the JAX package's
+# keys, so one params.npz reads the same in both packages
+# ---------------------------------------------------------------------------
+
+_FLAT_SEP = "|"  # layer paths contain "/" (module/layer), never "|"
+
+
+def qtree_to_flat(qtree) -> Dict[str, np.ndarray]:
+    """Quantized tree -> {key: array} for ``np.savez`` (tuple positions
+    become integer path components)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, prefix + [str(k)])
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, prefix + [str(i)])
+        else:
+            flat[_FLAT_SEP.join(prefix)] = np.asarray(node)
+
+    walk(qtree, [])
+    return flat
+
+
+def qtree_from_flat(flat: Dict[str, np.ndarray]):
+    """Inverse of ``qtree_to_flat``: all-digit dict levels fold back into
+    tuples.  ``qtree_to_device(..., pack_kernels=True)`` then rebuilds the
+    kernels' packed weights, which are never stored."""
+    root: dict = {}
+    for key, arr in flat.items():
+        parts = key.split(_FLAT_SEP)
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+
+    def fold(node):
+        if isinstance(node, dict):
+            if node and all(k.isdigit() for k in node):
+                return tuple(fold(node[str(i)]) for i in range(len(node)))
+            return {k: fold(v) for k, v in node.items()}
+        return node
+
+    return fold(root)
+
+
+def static_to_dict(static: QuantStatic) -> dict:
+    """``QuantStatic`` as JSON-ready data (a bundle's ``meta.json``)."""
+    return dataclasses.asdict(static)
+
+
+def static_from_dict(d: dict) -> QuantStatic:
+    """Inverse of ``static_to_dict`` (JSON lists back to tuples)."""
+    meta = {path: dict(m, splits=tuple(m["splits"]))
+            for path, m in d["layer_meta"].items()}
+    return QuantStatic(arch=d["arch"], layer_meta=meta,
+                       stem=tuple((str(n), bool(p)) for n, p in d["stem"]),
+                       two_branch=bool(d["two_branch"]),
+                       num_stages=int(d["num_stages"]),
+                       input_a=float(d["input_a"]),
+                       input_z=float(d["input_z"]))

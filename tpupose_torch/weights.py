@@ -143,3 +143,19 @@ def load_chainer_npz(model: nn.Module, path: str) -> Dict[str, list]:
             else:
                 missing.append(key)
     return {"loaded": loaded, "missing": missing, "unused": sorted(flat)}
+
+
+def state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """A Flax param tree (``params[block][layer]["conv"]``, HWIO kernels)
+    -> the torch models' ``state_dict`` keys and OIHW layout, as float32
+    numpy arrays; no model is built."""
+    params = params.get("params", params)
+    out = {}
+    for block, layers in params.items():
+        for layer, leaves in layers.items():
+            conv = leaves["conv"]
+            out[f"{block}.{layer}.conv.weight"] = np.ascontiguousarray(
+                np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1))
+            out[f"{block}.{layer}.conv.bias"] = np.asarray(conv["bias"],
+                                                           np.float32)
+    return out
