@@ -111,6 +111,25 @@ counters).
    export and load times, HTTP and in-process latency (medians of 10),
    requests per second from 4 clients and the phase's seconds, beside
    the card's name and power limit.
+10. Train (``tpupose_torch.train``, ``data``, ``apps/train_cli.py``; no
+   kernel runs on this path: GT rendering, the loss and Adam are plain
+   torch on the card).  CocoPoseNet, 6 stages at 368, B = 10, on
+   synthetic batches in f32 (TF32 off, deterministic cuDNN) and in bf16:
+   2 warm-up and 10 timed steps under the default stem freeze (finite
+   losses, the 10 frozen stem layers bit-unchanged), then 20 steps on one
+   fixed batch without the freeze (the loss must fall); FaceNet and
+   HandNet at 368, B = 10, f32, 10 steps on a fixed batch (the loss must
+   fall).  The full net at insize 64, B = 2, on the card against the CPU:
+   GT maps within atol 1e-5, loss rtol 1e-4, each gradient leaf within
+   1e-3 x max |g|.  ``remat`` gradients within 1e-6 x max |g| of the plain
+   ones at 368, B = 10, with both peak memories.  Save at step 2, restore
+   into a fresh state, step 3 bit-equal to an uninterrupted run; the npz
+   export reloads into ``CocoPoseNet`` unchanged.  ``train_cli.main(
+   ["--synthetic", "--test"])`` with and without ``--bf16`` (log,
+   snapshot, ``posenet_final.npz``).  Prints step ms (median, min, max),
+   images/s, TFLOP/s from the convs' count, peak memory per dtype and
+   with remat, the loader's samples/s at 0 and 4 workers and the phase's
+   seconds, beside the card's name and power limit.
 
 The last two lines are the kernels' JSON record (each kernel's time, plain
 time, bound and launches on the driven paths, the crop nets' and the
@@ -1957,6 +1976,404 @@ def run_serving(f32_det, qdet, pdet, face, cfg, frames, smi):
     return totals
 
 
+TRAIN_INSIZE = 368       # the reference trainer's crop
+TRAIN_BATCH = 10         # and batch
+TRAIN_TIMED = 10         # timed steps after 2 warm-up steps
+TRAIN_FALL_STEPS = 20    # steps on one fixed batch that must lower the loss
+CROP_FALL_STEPS = 10     # the same for FaceNet and HandNet
+LOADER_BATCHES = 6       # batches timed per loader setting
+
+
+def _conv_flops(model, insize):
+    """Forward multiply-adds x 2 of every conv of ``model`` on one
+    ``insize``-square image, from the shapes (a meta-device forward)."""
+    import torch
+
+    total = []
+
+    def hook(m, _, out):
+        total.append(2 * m.kernel_size[0] * m.kernel_size[1]
+                     * m.in_channels * m.out_channels
+                     * out.shape[-2] * out.shape[-1])
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model.to("meta")(torch.zeros(1, insize, insize, 3,
+                                         device="meta"))
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(total)
+
+
+def _train_state(arch, dtype, cfg, seed=0, device="cuda"):
+    from tpupose_torch.models import ARCHS
+    from tpupose_torch.train import trainer as ttr
+
+    return ttr.init_train_state(ARCHS[arch](seed=seed, dtype=dtype), cfg,
+                                arch=arch, device=device)
+
+
+def _synthetic_batches(k, insize, batch, n, seed=0, pin=True):
+    from tpupose_torch.data import BatchLoader, SyntheticCropDataset
+
+    ds = SyntheticCropDataset(k, insize=insize, n_samples=batch * n,
+                              seed=seed)
+    return list(BatchLoader(ds, batch, max_persons=1, shuffle=False,
+                            repeat=False, pin_memory=pin))
+
+
+def _run_steps(state, step, batches, timed_from=None):
+    """Take a step per batch; returns (losses, per-step CUDA-event ms of
+    the steps from ``timed_from`` on)."""
+    import torch
+
+    losses, events = [], []
+    for i, batch in enumerate(batches):
+        timed = timed_from is not None and i >= timed_from
+        if timed:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        state, metrics = step(state, batch)
+        if timed:
+            e1.record()
+            events.append((e0, e1))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    return ([float(v) for v in torch.stack(losses).cpu()],
+            [a.elapsed_time(b) for a, b in events])
+
+
+def _check_finite(label, losses):
+    import math
+
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite losses {losses}")
+
+
+def _check_falls(label, losses):
+    _check_finite(label, losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall on a fixed "
+                             f"batch: {losses[0]} -> {losses[-1]}")
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _check_grads(label, got, ref, rel):
+    """Each leaf of ``got`` within ``rel`` x max |ref leaf| of ``ref``;
+    returns the worst ratio of error to max |g|."""
+    worst = 0.0
+    for name, r in ref.items():
+        g = got[name].to(r.device)
+        scale = r.abs().max().item()
+        err = (g - r).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        if err > rel * scale:
+            raise AssertionError(f"{label}: {name} gradient off by {err} > "
+                                 f"{rel} x {scale}")
+    return worst
+
+
+def _full_width_steps(cfg, batches, numbers):
+    """Phase 10 step 1: CocoPoseNet (6 stages, 368, B = 10) in f32 and
+    bf16: 2 warm-up and 10 timed steps under the default stem freeze (the
+    10 frozen layers must not move), then 20 steps of a fresh state on one
+    fixed batch without the freeze (the loss must fall)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from tpupose_torch.models import CocoPoseNet
+    from tpupose_torch.train import trainer as ttr
+    from tpupose_torch.train.optimizer import FREEZE_LAYERS
+
+    fwd = _conv_flops(CocoPoseNet(), TRAIN_INSIZE)
+    numbers["forward_gflop_per_image"] = fwd / 1e9
+    step = ttr.make_train_step(cfg)
+    unfrozen = dataclasses.replace(cfg, stem_freeze_steps=0)
+    fall = ttr.make_train_step(unfrozen)
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        state = _train_state("posenet", dtype, cfg)
+        frozen = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()
+                  if n.split(".")[1] in FREEZE_LAYERS
+                  and n.startswith("stem.")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, _ = _run_steps(state, step, batches[:2])  # warm-up
+        t0 = time.perf_counter()
+        timed, ms = _run_steps(state, step, batches[2:], timed_from=0)
+        wall = (time.perf_counter() - t0) / len(ms)
+        losses += timed
+        numbers[f"{label}_peak_mib"] = (torch.cuda.max_memory_allocated()
+                                        / 2 ** 20)
+        _check_finite(label, losses)
+        moved = [n for n, p in state.model.named_parameters()
+                 if n in frozen and not torch.equal(p, frozen[n])]
+        if len(frozen) != 2 * len(FREEZE_LAYERS) or moved:
+            raise AssertionError(f"{label}: frozen stem moved: {moved}")
+        numbers[f"{label}_step_ms_median"] = statistics.median(ms)
+        numbers[f"{label}_step_ms_min"] = min(ms)
+        numbers[f"{label}_step_ms_max"] = max(ms)
+        numbers[f"{label}_images_per_s"] = (
+            1000.0 * TRAIN_BATCH / statistics.median(ms))
+        # a step is a forward and a backward of ~2 forwards' work
+        numbers[f"{label}_tflop_per_s"] = (
+            3 * fwd * TRAIN_BATCH / statistics.median(ms) / 1e9)
+        numbers[f"{label}_host_ms_per_step"] = 1000.0 * wall
+        print(f"posenet {label} {TRAIN_INSIZE} B={TRAIN_BATCH}: step ms "
+              f"{[round(v, 2) for v in ms]}, losses {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, stem frozen bit-unchanged over "
+              f"{len(batches)} steps, peak "
+              f"{numbers[f'{label}_peak_mib']:.1f} MiB")
+        del state
+        state = _train_state("posenet", dtype, unfrozen, seed=1)
+        losses, _ = _run_steps(state, fall, batches[:1] * TRAIN_FALL_STEPS)
+        _check_falls(f"posenet {label}", losses)
+        print(f"posenet {label}: {TRAIN_FALL_STEPS} steps on one batch, "
+              f"no freeze: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+        del state
+        torch.cuda.empty_cache()
+
+
+def _crop_net_steps(cfg):
+    """FaceNet and HandNet at 368, B = 10, f32: finite losses that fall
+    on a fixed batch."""
+    import torch
+
+    from tpupose_torch.train import trainer as ttr
+
+    step = ttr.make_train_step(cfg)
+    for arch, k in (("facenet", 70), ("handnet", 21)):
+        batch = _synthetic_batches(k, TRAIN_INSIZE, TRAIN_BATCH, 1)[0]
+        state = _train_state(arch, torch.float32, cfg)
+        losses, ms = _run_steps(state, step, [batch] * CROP_FALL_STEPS,
+                                timed_from=2)
+        _check_falls(arch, losses)
+        print(f"{arch} f32 {TRAIN_INSIZE} B={TRAIN_BATCH}: {CROP_FALL_STEPS} "
+              f"steps on "
+              f"one batch, loss {losses[0]:.5f} -> {losses[-1]:.5f}, step "
+              f"ms median {sorted(ms)[len(ms) // 2]:.2f}")
+        del state
+        torch.cuda.empty_cache()
+
+
+def _card_vs_cpu(cfg):
+    """Phase 10 step 2: the full 6-stage net at insize 64, B = 2, from one
+    seeded parameter set and one batch, on the card and on the CPU: GT
+    maps within atol 1e-5, loss rtol 1e-4, gradients 1e-3 x max |g|."""
+    import dataclasses
+
+    import torch
+
+    from tpupose_torch.train import trainer as ttr
+
+    cfg = dataclasses.replace(cfg, insize=64, stem_freeze_steps=0)
+    batch = _synthetic_batches(18, 64, 2, 1, seed=3, pin=False)[0]
+    out = {}
+    for device in ("cuda", "cpu"):
+        state = _train_state("posenet", torch.float32, cfg, seed=2,
+                             device=device)
+        b = batch.to(device)
+        pafs, heat = ttr.render_batch_labels(b, cfg, out_hw=(8, 8))
+        total, _ = ttr.loss_for_batch(state.model, b, cfg)
+        total.backward()
+        out[device] = (pafs.cpu(), heat.cpu(), total.item(),
+                       _grads(state.model))
+    gt_err = max((out["cuda"][i] - out["cpu"][i]).abs().max().item()
+                 for i in (0, 1))
+    if gt_err > 1e-5:
+        raise AssertionError(f"GT maps card vs CPU off by {gt_err}")
+    loss_rel = abs(out["cuda"][2] / out["cpu"][2] - 1)
+    if loss_rel > 1e-4:
+        raise AssertionError(f"loss card vs CPU off by rel {loss_rel}")
+    worst = _check_grads("card vs CPU", out["cuda"][3], out["cpu"][3], 1e-3)
+    print(f"card vs CPU (posenet, 6 stages, 64, B=2): GT max_abs_err "
+          f"{gt_err:.3g}, loss rel err {loss_rel:.3g}, worst gradient "
+          f"leaf err / max|g| {worst:.3g}")
+
+
+def _remat(cfg, batch, numbers):
+    """Phase 10 step 3: gradients with ``remat`` equal those without,
+    within 1e-6 x max |g|, at 368, B = 10, f32; both peak memories."""
+    import dataclasses
+
+    import torch
+
+    from tpupose_torch.train import trainer as ttr
+
+    state = _train_state("posenet", torch.float32, cfg, seed=4)
+    batch = batch.to("cuda")
+    grads = {}
+    for remat in (False, True):
+        state.model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        total, _ = ttr.loss_for_batch(
+            state.model, batch, dataclasses.replace(cfg, remat=remat))
+        total.backward()
+        torch.cuda.synchronize()
+        numbers[f"{'remat' if remat else 'plain'}_grad_peak_mib"] = (
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+        grads[remat] = _grads(state.model)
+    worst = _check_grads("remat", grads[True], grads[False], 1e-6)
+    print(f"remat: gradients equal the plain ones within "
+          f"{worst:.3g} x max|g|; forward + backward peak "
+          f"{numbers['plain_grad_peak_mib']:.1f} MiB plain, "
+          f"{numbers['remat_grad_peak_mib']:.1f} MiB remat")
+    del state, grads
+    torch.cuda.empty_cache()
+
+
+def _resume(cfg, batches, root):
+    """Phase 10 step 4: save at step 2, restore into a fresh state, take
+    step 3 (the stem's first live update): bit-equal to three
+    uninterrupted steps; the npz export reloads unchanged."""
+    import dataclasses
+
+    import torch
+
+    from tpupose_torch.models import CocoPoseNet
+    from tpupose_torch.train import checkpoint as ckpt
+    from tpupose_torch.train import trainer as ttr
+    from tpupose_torch.weights import load_chainer_npz
+
+    cfg = dataclasses.replace(cfg, stem_freeze_steps=2)
+    step = ttr.make_train_step(cfg)
+    full = _train_state("posenet", torch.float32, cfg, seed=5)
+    _run_steps(full, step, batches[:3])
+    part = _train_state("posenet", torch.float32, cfg, seed=5)
+    _run_steps(part, step, batches[:2])
+    path = ckpt.save_checkpoint(root, part)
+    del part
+    resumed = ckpt.restore_checkpoint(
+        path, _train_state("posenet", torch.float32, cfg, seed=6))
+    _run_steps(resumed, step, batches[2:3])
+    for (name, a), b in zip(full.model.state_dict().items(),
+                            resumed.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resume: {name} differs from the "
+                                 "uninterrupted run")
+    sa, sb = full.optimizer.state_dict(), resumed.optimizer.state_dict()
+    if sa["param_groups"] != sb["param_groups"] or any(
+            not torch.equal(sa["state"][i][k], sb["state"][i][k])
+            for i in sa["state"] for k in ("exp_avg", "exp_avg_sq")):
+        raise AssertionError("resume: optimizer state differs")
+    npz = ckpt.export_model_npz(root, resumed)
+    reloaded = CocoPoseNet(seed=7)
+    report = load_chainer_npz(reloaded, npz)
+    if report["missing"] or report["unused"]:
+        raise AssertionError(f"npz export: {report}")
+    for (name, a), b in zip(resumed.model.state_dict().items(),
+                            reloaded.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"npz export: {name} changed")
+    print(f"resume: save at step 2, restore, step 3 bit-equal to the "
+          f"uninterrupted run (parameters and Adam state); "
+          f"{os.path.basename(npz)} reloads into CocoPoseNet unchanged")
+    del full, resumed
+    torch.cuda.empty_cache()
+
+
+def _train_cli_runs(root, numbers):
+    """Phase 10 step 5: ``train_cli.main(["--synthetic", "--test"])`` on
+    the card, f32 and bf16."""
+    import json as _json
+
+    from tpupose_torch.apps import train_cli
+
+    for label, flags in (("f32", []), ("bf16", ["--bf16"])):
+        out = os.path.join(root, f"cli_{label}")
+        t0 = time.perf_counter()
+        train_cli.main(["--synthetic", "--test", "--out", out, *flags])
+        numbers[f"cli_{label}_s"] = time.perf_counter() - t0
+        with open(os.path.join(out, "log")) as f:
+            log = _json.load(f)
+        if [e["iteration"] for e in log] != list(range(1, 11)) or not all(
+                e["main/loss"] == e["main/loss"] for e in log) \
+                or "val/loss" not in log[-1]:
+            raise AssertionError(f"train_cli {label}: log {log}")
+        for name in ("posenet_final.npz", "model_iter_10.npz",
+                     os.path.join("ckpt", "10", "state.pt"),
+                     "params.json", "train_step.export.txt"):
+            if not os.path.exists(os.path.join(out, name)):
+                raise AssertionError(f"train_cli {label}: no {name}")
+        print(f"train_cli --synthetic --test {' '.join(flags)}: 10 "
+              f"iterations, loss {log[0]['main/loss']:.5f} -> "
+              f"{log[-1]['main/loss']:.5f}, val {log[-1]['val/loss']:.5f}, "
+              f"{numbers[f'cli_{label}_s']:.1f} s with set-up")
+
+
+def _loader_rates(numbers):
+    """The loader's samples/s at ``--loaderjob`` 0 and 4 (368-px synthetic
+    posenet samples, B = 10), after its first batch."""
+    from tpupose_torch.data import BatchLoader, SyntheticCropDataset
+
+    for workers in (0, 4):
+        loader = BatchLoader(
+            SyntheticCropDataset(18, insize=TRAIN_INSIZE, n_samples=200),
+            TRAIN_BATCH, max_persons=1, num_workers=workers,
+            pin_memory=True)
+        try:
+            it = iter(loader)
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(LOADER_BATCHES):
+                next(it)
+            dt = time.perf_counter() - t0
+        finally:
+            loader.close()
+        numbers[f"loader_j{workers}_samples_per_s"] = (
+            LOADER_BATCHES * TRAIN_BATCH / dt)
+
+
+def run_training(smi):
+    """Phase 10: the training path at full width on the card (see the
+    module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpupose_torch.config import TRAIN
+    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.ops import _cuda_build
+
+    t_phase = time.perf_counter()
+    numbers = {}
+    cfg = TRAIN
+    batches = _synthetic_batches(18, TRAIN_INSIZE, TRAIN_BATCH,
+                                 2 + TRAIN_TIMED)
+    os.makedirs(_cuda_build.BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train-", dir=_cuda_build.BUILD_DIR)
+    try:
+        with float32_numerics():
+            _full_width_steps(cfg, batches, numbers)
+            _crop_net_steps(cfg)
+            _card_vs_cpu(cfg)
+            _remat(cfg, batches[0], numbers)
+            _resume(cfg, batches, root)
+        _train_cli_runs(root, numbers)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _loader_rates(numbers)
+    numbers["phase10_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    print(f"phase 10 training numbers ({smi}; posenet 6 stages, 368, "
+          f"B={TRAIN_BATCH}; step ms from CUDA events over "
+          f"{TRAIN_TIMED} steps after 2 warm-up, images/s = steps/s x B; "
+          f"peak MiB from max_memory_allocated; loader samples/s on the "
+          f"host clock over {LOADER_BATCHES} batches): "
+          + json.dumps({k: round(v, 4) for k, v in numbers.items()}))
+
+
 def _start_resource_report(name):
     """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu`` (registers, shared
     memory and spills of each kernel); returns (process, cubin path)."""
@@ -2051,9 +2468,13 @@ def main() -> int:
           f"tiny frames {time.perf_counter() - t2:.2f} s")
     serving_counts = run_serving(f32_det, qdet, pdet, face, cfg, frames,
                                  smi.stdout.strip())
+    del f32_det, qdet, pdet, face
+    torch.cuda.empty_cache()
+    run_training(smi.stdout.strip())
 
     leaked = [m for m in sys.modules
-              if m.split(".")[0] in ("jax", "flax", "cv2", "tpupose")]
+              if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "cv2",
+                                     "tpupose")]
     if leaked:
         raise AssertionError(f"the port imported {leaked[:4]}")
     # launches: the sum over the driven paths, each counted from zero

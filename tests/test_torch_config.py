@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's schema, configuration and
 weight-file layer names (``tpupose_torch/config.py``,
-``tpupose_torch/weights.py``) against the originals, on the CPU."""
+``tpupose_torch/weights/``, the optimizer's stem layer lists) against the
+originals, on the CPU."""
 
 import dataclasses
 import warnings
@@ -100,3 +101,24 @@ def test_layer_to_path_equals_jax_on_every_crop_net_layer(arch):
         got = tw.layer_to_path(layer)
         assert got == jnpz.layer_to_path(layer), layer
         assert f"{got[0]}.{got[1]}.conv" == module_name
+
+
+def test_train_config_equals_jax_field_by_field():
+    jfields = [f.name for f in dataclasses.fields(jcfg.TrainConfig)]
+    assert [f.name for f in dataclasses.fields(tcfg.TrainConfig)] == jfields
+    for name in jfields:
+        assert getattr(tcfg.TRAIN, name) == getattr(jcfg.TRAIN, name), name
+
+
+def test_coco_joint_order_and_flip_pairs_equal_jax():
+    assert tcfg.COCO_JOINT_ORDER == jcfg.COCO_JOINT_ORDER
+    assert len(tcfg.COCO_JOINT_ORDER) == 17
+    assert tcfg.FLIP_PAIRS == jcfg.FLIP_PAIRS
+
+
+def test_stem_layer_lists_equal_jax():
+    from tpupose.train import optimizer as jopt
+    from tpupose_torch.train import optimizer as topt
+
+    assert topt.GRAD_SCALE_LAYERS == jopt.GRAD_SCALE_LAYERS
+    assert topt.FREEZE_LAYERS == jopt.FREEZE_LAYERS

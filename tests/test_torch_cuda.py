@@ -652,3 +652,107 @@ def test_cuda_bundle_equals_live_detector(cuda_device, mode, tmp_path):
     for g, r in zip(srv.detect_batch(frames), det.detect_batch(frames)):
         np.testing.assert_array_equal(g[0], r[0])
         np.testing.assert_array_equal(g[1], r[1])
+
+
+# ------------------------------------------------------------- training
+
+
+def _train_pair(device, cfg, seed, num_stages=6):
+    from tpupose_torch.models import CocoPoseNet
+    from tpupose_torch.train import trainer as ttr
+
+    return ttr.init_train_state(CocoPoseNet(num_stages=num_stages,
+                                            seed=seed), cfg, device=device)
+
+
+def _synthetic_batch(insize, b, seed=0):
+    from tpupose_torch.data import BatchLoader, SyntheticCropDataset
+
+    ds = SyntheticCropDataset(18, insize=insize, n_samples=b, seed=seed)
+    return next(iter(BatchLoader(ds, b, max_persons=1, shuffle=False,
+                                 repeat=False)))
+
+
+def _loss_and_grads(state, batch, cfg):
+    from tpupose_torch.train import trainer as ttr
+
+    state.model.zero_grad(set_to_none=True)
+    total, _ = ttr.loss_for_batch(
+        state.model, batch.to(next(state.model.parameters()).device), cfg)
+    total.backward()
+    return total.item(), {n: p.grad.detach().cpu()
+                          for n, p in state.model.named_parameters()}
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """The full 6-stage CocoPoseNet at insize 64, B = 2: GT maps within
+    atol 1e-5, the loss within rtol 1e-4 and each gradient leaf within
+    1e-3 x max |g| of the CPU's, from one seeded parameter set."""
+    from tpupose_torch.config import TrainConfig
+    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.train import trainer as ttr
+
+    cfg = TrainConfig(insize=64, stem_freeze_steps=0)
+    batch = _synthetic_batch(64, 2, seed=3)
+    out = {}
+    with float32_numerics():
+        for device in (cuda_device, torch.device("cpu")):
+            state = _train_pair(device, cfg, seed=2)
+            b = batch.to(device)
+            gt = ttr.render_batch_labels(b, cfg, out_hw=(8, 8))
+            out[device.type] = ([t.cpu() for t in gt],
+                                *_loss_and_grads(state, batch, cfg))
+    for g, r in zip(out["cuda"][0], out["cpu"][0]):
+        assert (g - r).abs().max().item() <= 1e-5
+    assert abs(out["cuda"][1] / out["cpu"][1] - 1) <= 1e-4
+    for name, r in out["cpu"][2].items():
+        err = (out["cuda"][2][name] - r).abs().max().item()
+        assert err <= 1e-3 * r.abs().max().item(), name
+
+
+def test_remat_gradients_on_the_card_equal_plain(cuda_device):
+    import dataclasses
+
+    from tpupose_torch.config import TrainConfig
+    from tpupose_torch.detectors.pose import float32_numerics
+
+    cfg = TrainConfig(insize=64, stem_freeze_steps=0)
+    batch = _synthetic_batch(64, 2, seed=4)
+    with float32_numerics():
+        state = _train_pair(cuda_device, cfg, seed=5)
+        plain = _loss_and_grads(state, batch, cfg)
+        remat = _loss_and_grads(state, batch,
+                                dataclasses.replace(cfg, remat=True))
+    assert remat[0] == plain[0]
+    for name, r in plain[1].items():
+        err = (remat[1][name] - r).abs().max().item()
+        assert err <= 1e-6 * r.abs().max().item(), name
+
+
+def test_resume_on_the_card_equals_an_uninterrupted_run(cuda_device,
+                                                        tmp_path):
+    """Save at step 2 (the stem still frozen), restore into a fresh state,
+    take step 3 (its first live update): bit-equal, under deterministic
+    cuDNN, to three uninterrupted steps."""
+    from tpupose_torch.config import TrainConfig
+    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.train import checkpoint as ckpt
+    from tpupose_torch.train import trainer as ttr
+
+    cfg = TrainConfig(insize=64, stem_freeze_steps=2)
+    batches = [_synthetic_batch(64, 2, seed=s) for s in range(3)]
+    step = ttr.make_train_step(cfg)
+    with float32_numerics():
+        full = _train_pair(cuda_device, cfg, seed=0, num_stages=2)
+        for b in batches:
+            full, _ = step(full, b)
+        part = _train_pair(cuda_device, cfg, seed=0, num_stages=2)
+        for b in batches[:2]:
+            part, _ = step(part, b)
+        path = ckpt.save_checkpoint(str(tmp_path), part)
+        resumed = ckpt.restore_checkpoint(
+            path, _train_pair(cuda_device, cfg, seed=1, num_stages=2))
+        resumed, _ = step(resumed, batches[2])
+    for (name, a), b in zip(full.model.state_dict().items(),
+                            resumed.model.state_dict().values()):
+        assert torch.equal(a, b), name

@@ -130,6 +130,27 @@ def test_import_leaves_out_jax_flax_and_cv2():
                    timeout=120)
 
 
+def test_training_imports_leave_out_jax_optax_orbax_and_cv2():
+    """The training path (``train``, ``data``, the Caffe reader, the
+    reports and the training apps) imports nothing of JAX, Flax, optax,
+    orbax, cv2 or ``tpupose``; cv2 and matplotlib load only inside the
+    functions that decode images or plot."""
+    code = ("import sys, tpupose_torch.train, tpupose_torch.data, "
+            "tpupose_torch.train.checkpoint, tpupose_torch.weights.caffe, "
+            "tpupose_torch.utils.reporting, tpupose_torch.apps.train_cli, "
+            "tpupose_torch.apps.data_viz, tpupose_torch.apps.gen_masks, "
+            "tpupose_torch.apps.convert_model, "
+            "tpupose_torch.apps.plot_log; "
+            "import tpupose_torch.apps.train_cli as cli; "
+            "cli.parse_args(['--synthetic']); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'orbax', 'cv2', 'matplotlib', "
+            "'tpupose')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
 def test_emit_result_warns_once_on_saturation():
     s_cap = 4
     result = PoseResult(

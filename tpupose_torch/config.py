@@ -1,9 +1,10 @@
-"""The pose schema and inference configuration of the port.
+"""The pose schema, inference and training configuration of the port.
 
 The port's own copy of what it uses from ``tpupose/config.py``: the
-18-joint skeleton, the 19-limb PAF topology, ``InferenceConfig``, the face
-and hand nets' ``FaceConfig`` / ``HandConfig`` and their drawing topologies,
-with the same values, so the port imports nothing of the JAX package.
+18-joint skeleton, the 19-limb PAF topology, the COCO joint order and the
+flip pairs, ``InferenceConfig``, ``TrainConfig``, the face and hand nets'
+``FaceConfig`` / ``HandConfig`` and their drawing topologies, with the same
+values, so the port imports nothing of the JAX package.
 ``tests/test_torch_config.py`` holds the two copies equal.
 """
 
@@ -73,6 +74,39 @@ LIMBS_TO = np.asarray([b for _, b in LIMBS], np.int32)
 # shoulder -> ear links).
 NON_SPAWNING_LIMBS: Tuple[int, ...] = (9, 13)
 
+# COCO's 17-keypoint order -> internal JointType.
+COCO_JOINT_ORDER: Tuple[int, ...] = (
+    JointType.Nose,
+    JointType.LeftEye,
+    JointType.RightEye,
+    JointType.LeftEar,
+    JointType.RightEar,
+    JointType.LeftShoulder,
+    JointType.RightShoulder,
+    JointType.LeftElbow,
+    JointType.RightElbow,
+    JointType.LeftHand,
+    JointType.RightHand,
+    JointType.LeftWaist,
+    JointType.RightWaist,
+    JointType.LeftKnee,
+    JointType.RightKnee,
+    JointType.LeftFoot,
+    JointType.RightFoot,
+)
+
+# Left/right joint pairs swapped on a horizontal flip.
+FLIP_PAIRS: Tuple[Tuple[int, int], ...] = (
+    (JointType.LeftEye, JointType.RightEye),
+    (JointType.LeftEar, JointType.RightEar),
+    (JointType.LeftShoulder, JointType.RightShoulder),
+    (JointType.LeftElbow, JointType.RightElbow),
+    (JointType.LeftHand, JointType.RightHand),
+    (JointType.LeftWaist, JointType.RightWaist),
+    (JointType.LeftKnee, JointType.RightKnee),
+    (JointType.LeftFoot, JointType.RightFoot),
+)
+
 # Face: 70 keypoints; polyline segments for drawing.
 FACE_LINES: Tuple[Tuple[int, int], ...] = tuple(
     [(i, i + 1) for i in range(0, 16)]        # face outline
@@ -137,6 +171,56 @@ class InferenceConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters (the reference trainer's)."""
+
+    insize: int = 368
+    downscale: int = 8
+    paf_sigma: float = 8.0       # half-width of the constant PAF band
+    heatmap_sigma: float = 7.0   # GT heatmap gaussian sigma
+
+    min_keypoints: int = 5
+    min_area: float = 32 * 32
+
+    min_box_size: float = 64.0
+    max_box_size: float = 512.0
+    min_scale: float = 0.5
+    max_scale: float = 2.0
+    max_rotate_degree: float = 40.0
+    center_perturb_max: float = 40.0
+
+    batch_size: int = 10
+    lr: float = 1e-4
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-8
+    # LR schedule: 1e-4 -> 1e-5 at step 100k -> 1e-6 at 200k.
+    lr_drop_steps: Tuple[int, ...] = (100_000, 200_000)
+    lr_drop_factor: float = 0.1
+    iterations: int = 300_000
+    # The VGG stem is frozen for the first N steps.
+    stem_freeze_steps: int = 2000
+    # Gradient scale of the 12 stem layers.
+    stem_grad_scale: float = 0.25
+    # Dilation kernel of the ignore mask.
+    mask_dilate_ksize: int = 16
+    # Most persons rendered into one image's GT maps (a static bound).
+    max_persons: int = 16
+
+    snapshot_interval: int = 1000
+    log_interval: int = 20
+
+    # Recompute the forward's activations in the backward pass
+    # (``torch.utils.checkpoint``).
+    remat: bool = False
+
+    # Render the GT maps at the stage output resolution instead of at the
+    # input resolution followed by the loss's align-corners downsample:
+    # the same bilinear weights on the analytic maps, ~1e-7 apart.
+    gt_at_output_res: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class FaceConfig:
     """Face keypoint inference parameters."""
 
@@ -158,5 +242,6 @@ class HandConfig:
 
 
 INFERENCE = InferenceConfig()
+TRAIN = TrainConfig()
 FACE = FaceConfig()
 HAND = HandConfig()

@@ -7,6 +7,14 @@ channels-last layout.  Submodule names mirror the Chainer layer names
 (``conv1_1`` ... ``Mconv7_stage6_L2``), so a state-dict key reads
 ``stem.conv1_1.conv.weight`` where the Flax tree has
 ``params/stem/conv1_1/conv/kernel``.
+
+The nets take a compute ``dtype`` (float32, or bfloat16 over float32
+parameters), as the Flax ones do, by explicit casts rather than
+``torch.autocast``: the model casts its input to ``dtype``, each conv runs
+in the dtype of its input with its weight and bias cast to it (Flax casts
+input, kernel and bias), and the ReLUs, pools and concatenations that
+follow stay in that dtype; ``stack_stages`` returns float32.  At float32
+the casts are no-ops and the forward is the plain ``nn.Conv2d`` one.
 """
 
 from __future__ import annotations
@@ -29,7 +37,12 @@ class ConvReLU(nn.Module):
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        conv = self.conv
+        if x.dtype == conv.weight.dtype:
+            x = conv(x)
+        else:  # a compute dtype below the float32 parameters
+            x = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                         padding=conv.padding)
         return F.relu(x) if self.relu else x
 
 
@@ -142,13 +155,15 @@ class SingleBranchCPM(nn.Module):
     single-branch stage 1, then refine stages on concat(previous heatmap,
     feature).  Submodules are named as the Flax ones (``stem``,
     ``stage1`` ... ``stage6``); weights are drawn from ``seed`` as
-    ``init_conv_weights`` says."""
+    ``init_conv_weights`` says; ``dtype`` is the compute dtype."""
 
     num_channels: int = 0   # keypoints + background, set by the subclass
 
-    def __init__(self, num_stages: int = 6, seed: int = 0):
+    def __init__(self, num_stages: int = 6, seed: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_stages = num_stages
+        self.dtype = dtype
         c = self.num_channels
         self.stem = VGGFaceStem()
         self.stage1 = Stage1SingleBranch(128, c)
@@ -159,7 +174,10 @@ class SingleBranchCPM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 3) normalized crops -> heatmaps
         (num_stages, B, H/8, W/8, C) float32."""
-        feature = self.stem(x.permute(0, 3, 1, 2).contiguous())
+        x = x.permute(0, 3, 1, 2).contiguous()
+        if x.dtype != self.dtype:
+            x = x.to(self.dtype)
+        feature = self.stem(x)
         h = self.stage1(feature)
         heatmaps = [h]
         for stage in range(2, self.num_stages + 1):

@@ -22,12 +22,15 @@ class CocoPoseNet(nn.Module):
     Submodules are named as the Flax ones (``stem``, ``stage1_L1``, ...,
     ``stage6_L2``).  Weights are initialised from ``seed`` through an
     explicit ``torch.Generator`` (see ``init_conv_weights``), so two
-    models built with one seed are equal.
+    models built with one seed are equal.  ``dtype`` is the compute dtype
+    (float32 or bfloat16; the parameters stay float32, see ``cpm``).
     """
 
-    def __init__(self, num_stages: int = 6, seed: int = 0):
+    def __init__(self, num_stages: int = 6, seed: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_stages = num_stages
+        self.dtype = dtype
         self.stem = VGG19Stem()
         self.stage1_L1 = Stage1Branch(NUM_FEATURES, NUM_PAF_CHANNELS, "_L1")
         self.stage1_L2 = Stage1Branch(NUM_FEATURES, NUM_HEATMAP_CHANNELS,
@@ -43,7 +46,10 @@ class CocoPoseNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, H, W, 3) normalized image -> (pafs, heatmaps) where
         pafs: (num_stages, B, H/8, W/8, 38), heatmaps: (..., 19)."""
-        feature = self.stem(x.permute(0, 3, 1, 2).contiguous())
+        x = x.permute(0, 3, 1, 2).contiguous()
+        if x.dtype != self.dtype:
+            x = x.to(self.dtype)
+        feature = self.stem(x)
         h1 = self.stage1_L1(feature)
         h2 = self.stage1_L2(feature)
         pafs, heatmaps = [h1], [h2]

@@ -1,9 +1,11 @@
-"""Weight loading for the torch models (port of
-``tpupose/weights/chainer_npz.py``).
+"""Weight loading and saving for the torch models (port of
+``tpupose/weights/chainer_npz.py``; the Caffe reader is ``caffe.py``).
 
-Two sources: the JAX package's Flax parameter tree (HWIO kernels, as numpy
-arrays) and the reference's Chainer model ``.npz`` (``"<layer>/W"`` OIHW
-kernels, ``"<layer>/b"`` biases).  Layer names route through
+Two formats: the JAX package's Flax parameter tree (HWIO kernels, as numpy
+arrays; ``load_flax_params`` and its inverse ``flax_params_from_model``)
+and the reference's Chainer model ``.npz`` (``"<layer>/W"`` OIHW kernels,
+``"<layer>/b"`` biases; ``load_chainer_npz`` and ``save_chainer_npz``,
+which writes the keys of the JAX package's ``save_npz_params``).  Layer names route through
 ``layer_to_path``, the port's copy of the JAX package's, so both packages
 read one file the same way (``tests/test_torch_config.py`` holds the two
 equal on every CocoPoseNet layer).
@@ -159,3 +161,42 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
             out[f"{block}.{layer}.conv.bias"] = np.asarray(conv["bias"],
                                                            np.float32)
     return out
+
+
+def flax_params_from_state_dict(state_dict: Mapping) -> Dict[str, dict]:
+    """The inverse of ``state_dict_from_flax``: ``<block>.<layer>.conv.
+    weight`` / ``.bias`` entries (OIHW; parameters or their gradients) ->
+    a Flax param tree ``{block: {layer: {"conv": {"kernel", "bias"}}}}``
+    of float32 numpy arrays, HWIO kernels."""
+    tree: Dict[str, dict] = {}
+    for name, value in state_dict.items():
+        block, layer, conv, leaf = name.split(".")
+        if conv != "conv" or leaf not in ("weight", "bias"):
+            raise ValueError(f"{name}: not a conv parameter")
+        value = value.detach().float().cpu().numpy()
+        leaves = tree.setdefault(block, {}).setdefault(
+            layer, {"conv": {}})["conv"]
+        if leaf == "weight":
+            leaves["kernel"] = np.ascontiguousarray(
+                value.transpose(2, 3, 1, 0))
+        else:
+            leaves["bias"] = value
+    return tree
+
+
+def flax_params_from_model(model: nn.Module) -> Dict[str, dict]:
+    """``model``'s parameters as a Flax param tree in the JAX package's
+    keys and HWIO layout (numpy float32)."""
+    return flax_params_from_state_dict(dict(model.named_parameters()))
+
+
+def save_chainer_npz(path: str, model: nn.Module) -> None:
+    """Save ``model`` as a Chainer model ``.npz``: ``"<layer>/W"`` OIHW and
+    ``"<layer>/b"``, the keys ``tpupose.weights.save_npz_params`` writes."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, module in model.named_modules():
+        if isinstance(module, nn.Conv2d):
+            layer = name.split(".")[-2]
+            flat[f"{layer}/W"] = module.weight.detach().float().cpu().numpy()
+            flat[f"{layer}/b"] = module.bias.detach().float().cpu().numpy()
+    np.savez(path, **flat)
