@@ -54,9 +54,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    50 conv7 ones and no requant, and, per pyramid scale, the card's int8
    maps bit-equal to the CPU's int8 forward on the same tree.
 
-After each driven path (3, 5, 6, 8, 9 and phase 7's im2col forward), every
-kernel is held against its plain version, bit-equal, on seeded random
-inputs at every shape the path gave it (the wrappers' ``shapes``
+After each driven path (3, 5, 6, 8, 9, 11 and phase 7's im2col forward),
+every kernel is held against its plain version, bit-equal, on seeded
+random inputs at every shape the path gave it (the wrappers' ``shapes``
 counters).
 7. Print where the time goes: the fast path's split; the int8 forward on
    its kernel route (checked: 50 conv7, 30 conv_s8, no requant launches)
@@ -131,11 +131,37 @@ counters).
    with remat, the loader's samples/s at 0 and 4 workers and the phase's
    seconds, beside the card's name and power limit.
 
+11. Drive the detectors' other modes and the evaluation harness
+   (``run_modes``, after phase 9, before phase 10).  bf16: a
+   ``compute_dtype=torch.bfloat16`` detector on the calibrated weights,
+   its fast and precise maps against the f32 ones (max_abs_err within
+   ``BF16_MAP_TOL`` x max|f32|, correlation >= ``BF16_MIN_CORR``), the
+   bf16 forward's CUDA-event ms beside f32's, ``__call__`` (median of 5),
+   precise ``__call__``, peak memory and blur_nms's launches; a bf16
+   FaceNet crop forward (B = 1 and 8) against f32; a bf16 bundle
+   (``params_dtype`` bfloat16) whose tables equal the live bf16
+   detector's.  Conv NMS: ``find_peaks(mode="conv")`` at (18, 320, 432)
+   with planted plateaus, smoothed maps, masks and peak tables equal to
+   the CPU's, and ``__call__`` with ``nms_mode="conv"`` (no kernel
+   launches) equal to the CPU postprocess of the card's maps.  The host
+   pyramid: precise ``__call__`` with ``device_pyramid=False`` (1
+   blur_nms launch per frame), the 0.5 scale's maps within 1e-4 x max|ref|
+   of a CPU forward of the same host-resized input.  Evaluate:
+   ``evaluate_detector`` over 8 in-memory 480x640 samples with GT built
+   here (the card's machine has no cv2 for COCO's JPEGs) for the fast
+   f32, fast int8 (50 conv7 and 30 conv_s8 launches per frame) and
+   bucketed detectors, depth 2 metrics equal to depth 0 metrics,
+   ``seconds_per_image`` printed; GT fed back scores AP 1.0.  Profiling:
+   ``utils.profiling.trace`` around one fast frame must name
+   ``blur_nms_kernel`` and the ``pose_fast_368x496`` span;
+   ``StageTimer.report()`` over three frames.  Every kernel is re-checked
+   at every shape the phase gave it.
+
 The last two lines are the kernels' JSON record (each kernel's time, plain
 time, bound and launches on the driven paths, the crop nets' and the
 serving phase's, bundles included;
 requant's launches are those of phase 7's im2col forward, the only route
-that runs it) and the result line.
+that runs it; phase 11's counted runs included) and the result line.
 """
 
 from __future__ import annotations
@@ -1040,7 +1066,7 @@ def run_precise(f32_det, cfg, frames):
         # resizes' float32 noise only; the f32 forward's cuDNN picks other
         # algorithms by batch (9.1e-6 seen).
         bound = 3e-4 if not quantized else 1e-5
-        paf_b, hm_b, _ = det._batch_maps(frames)
+        (paf_b, hm_b), _ = det._run(frames, True, postprocess=False)
         for i, (a, b) in enumerate(zip(singles, batched)):
             (paf, hm), _ = det.compute_maps(frames[i])
             errs = [(got - ref[i]).abs().max().item() / ref[i].abs().max()
@@ -1976,6 +2002,495 @@ def run_serving(f32_det, qdet, pdet, face, cfg, frames, smi):
     return totals
 
 
+# --- phase 11: detector modes and evaluation -------------------------------
+
+# bf16 vs f32 maps: max_abs_err / max|f32 map| and correlation.  bf16 keeps
+# 8 bits of mantissa (4e-3 relative) and rounds 40 layers' outputs; at
+# img_size 96 on the CPU the port's bf16 maps sit 1.5e-2 - 3.9e-2 x max
+# from its f32 maps, at corr 0.9999.
+BF16_MAP_TOL = 1e-1
+BF16_MIN_CORR = 0.995
+EVAL_IMAGES = 8          # in-memory eval samples (the card has no cv2)
+
+
+def _merge_shapes(into, shapes):
+    for name, seen in shapes.items():
+        into.setdefault(name, {}).update(seen)
+
+
+def _bf16_modes(f32_det, p32, cfg, frames, root, add):
+    """Phase 11, bf16: the fast and precise maps against the f32 ones, the
+    forward and ``__call__`` times, a FaceNet crop forward and a bf16
+    bundle.  Returns the shapes its counted runs gave the kernels."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.detectors import FaceDetector
+    from tpupose_torch.detectors.pose import (PoseDetector, float32_numerics,
+                                              preprocess_u8)
+    from tpupose_torch.ops.resize import resize_u8_linear
+    from tpupose_torch.serving import ServingPoseDetector, save_bundle
+    from tpupose_torch.utils.calibrate import calibrate_crop_output_conv
+
+    bf16 = torch.bfloat16
+    det = PoseDetector(cfg=cfg, device="cuda", compute_dtype=bf16)
+    det.model.load_state_dict(f32_det.model.state_dict())
+    pdet = PoseDetector(cfg=cfg, device="cuda", precise=True,
+                        compute_dtype=bf16)
+    pdet.model.load_state_dict(p32.model.state_dict())
+    if {p.dtype for p in det.model.parameters()} != {bf16}:
+        raise AssertionError("bf16 detector: parameters not stored in bf16")
+    for label, got_det, ref_det in (("fast", det, f32_det),
+                                    ("precise", pdet, p32)):
+        (paf, hm), _ = got_det.compute_maps(frames[0])
+        (rpaf, rhm), _ = ref_det.compute_maps(frames[0])
+        for name, got, ref in (("paf", paf, rpaf), ("heatmap", hm, rhm)):
+            err = (got.cpu() - ref.cpu()).abs().max().item() / \
+                ref.abs().max().item()
+            _, corr = _fidelity(ref, got)
+            print(f"bf16 {label} {name} maps {tuple(got.shape)} vs f32: "
+                  f"max_abs_err/max {err!r}, corr {corr!r} (bound "
+                  f"{BF16_MAP_TOL}, {BF16_MIN_CORR})")
+            if got.dtype != torch.float32 or not (
+                    err <= BF16_MAP_TOL and corr >= BF16_MIN_CORR):
+                raise AssertionError(f"bf16 {label} {name} maps do not "
+                                     f"track f32")
+
+    (in_h, in_w), _ = det._geometry(*frames.shape[1:3])
+    x = preprocess_u8(torch.from_numpy(
+        resize_u8_linear(frames[0], (in_w, in_h))[None]).cuda())
+    with float32_numerics(), torch.no_grad():
+        fwd = {"bf16": _cuda_ms(lambda: det.model(x), 5),
+               "f32": _cuda_ms(lambda: f32_det.model(x), 5)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    fast = [det(f) for f in frames]
+    batched = det.detect_batch(frames)
+    precise = pdet(frames[0])
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    shapes = _read_shapes()
+    add(counts)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if counts["blur_nms"] != 2 * len(frames) + 1 or counts["conv7_s8"]:
+        raise AssertionError(f"bf16 path launches {counts}")
+    # cuDNN takes other algorithms at B = 3 than at B = 1, and in bf16 the
+    # other roundings move map values by up to a few 1e-2 (f32: ~1e-5), so
+    # the tables of the two entry points may differ; their maps may not.
+    (paf_b, hm_b), _ = det._run(frames, False, postprocess=False)
+    for i, f in enumerate(frames):
+        (paf, hm), _ = det.compute_maps(f)
+        for name, got, ref in (("paf", paf_b[i], paf), ("heatmap", hm_b[i],
+                                                        hm)):
+            err = (got - ref).abs().max().item() / ref.abs().max().item()
+            _, corr = _fidelity(ref, got)
+            if not (err <= BF16_MAP_TOL and corr >= BF16_MIN_CORR):
+                raise AssertionError(f"bf16 frame {i}: detect_batch {name} "
+                                     f"maps off __call__'s ({err}, {corr})")
+    same = [_same_tables(a, b, score_atol=1e-3)
+            for a, b in zip(fast, batched)]
+    call_ms = _host_ms(lambda: det(frames[0]), 5)
+    precise_ms = _host_ms(lambda: pdet(frames[0]), 3)
+    print(f"bf16 forward {in_h}x{in_w}: {fwd['bf16']!r} ms against f32 "
+          f"{fwd['f32']!r} (CUDA events, mean of 5); fast __call__ "
+          f"{call_ms!r} ms (median of 5), precise {precise_ms!r} ms "
+          f"(median of 3); poses (fast) {[len(p) for p, _ in fast]}, "
+          f"(detect_batch) {[len(p) for p, _ in batched]}, tables equal "
+          f"{same}, (precise) {len(precise[0])}; launches {counts}; peak "
+          f"device memory {peak_mib:.1f} MiB")
+
+    face = FaceDetector(device="cuda", seed=0)
+    crops = [frames[2][t:b, l:r] for l, t, r, b in FIXED_FACE_BOXES]
+    calibrate_crop_output_conv(face, crops)
+    bface = FaceDetector(device="cuda", seed=0, compute_dtype=bf16)
+    bface.model.load_state_dict(face.model.state_dict())
+    imgs = bface.prepare_crops(crops, [False] * len(crops))
+    got, ref = bface.forward_maps(imgs)[-1], face.forward_maps(imgs)[-1]
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    _, corr = _fidelity(ref, got)
+    keypoints = bface.detect_batch(crops)
+    x1 = imgs[:1]
+    x8 = np.repeat(x1, 8, axis=0)
+    crop_ms = {f"B{len(b)}": _cuda_ms(lambda b=b: bface.forward_maps(b), 5)
+               for b in (x1, x8)}
+    valid = [sum(k is not None for k in kps) for kps in keypoints]
+    print(f"bf16 FaceNet crop forward {tuple(got.shape)}: max_abs_err/max "
+          f"{err!r}, corr {corr!r} vs f32; {crop_ms} ms (CUDA events); "
+          f"valid keypoints per crop {valid}")
+    if not (err <= BF16_MAP_TOL and corr >= BF16_MIN_CORR) or \
+            len(keypoints) != len(crops):
+        raise AssertionError("bf16 FaceNet maps do not track f32")
+
+    path = os.path.join(root, "bf16")
+    t0 = time.perf_counter()
+    save_bundle(det, path, [tuple(frames.shape[1:3])], platforms=("cuda",))
+    t1 = time.perf_counter()
+    srv = ServingPoseDetector(path, device="cuda")
+    t2 = time.perf_counter()
+    with open(os.path.join(path, "meta.json")) as f:
+        params_dtype = json.load(f)["params_dtype"]
+    if params_dtype != "bfloat16" or {w.dtype for w in srv.weights
+                                      if w.is_floating_point()} != {bf16}:
+        raise AssertionError(f"bf16 bundle records {params_dtype!r}")
+    _reset_counts()
+    for i, f in enumerate(frames[:2]):
+        if not _same_tables(srv(f), det(f), score_atol=0.0):
+            raise AssertionError(f"bf16 bundle frame {i}: tables differ "
+                                 f"from the live bf16 detector's")
+    torch.cuda.synchronize()
+    add(_read_counts())
+    _merge_shapes(shapes, _read_shapes())
+    print(f"bf16 bundle: export {t1 - t0:.2f} s, load {t2 - t1:.2f} s, "
+          f"params_dtype {params_dtype}, tables equal to the live bf16 "
+          f"detector's on 2 frames")
+    return shapes
+
+
+def _plateau_maps(rng, j, h, w):
+    """Planted peaks plus, per map, a 2-pixel plateau in a zeroed patch:
+    the ``>=`` rule keeps both of its pixels."""
+    hm = _planted(rng, j, h, w)
+    for c in range(j):
+        y, x = rng.randint(3, h - 3), rng.randint(3, w - 4)
+        hm[c, y - 3:y + 4, x - 3:x + 5] = 0.0
+        hm[c, y, x:x + 2] = 2.0
+    return hm
+
+
+def _conv_mode(f32_det, cfg, frames, add):
+    """Phase 11, conv NMS: ``find_peaks(mode="conv")`` on the card against
+    the CPU at the fast path's map shape, and ``__call__``'s tables against
+    the CPU's postprocess of the card's maps.  No kernel runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpupose_torch.detectors.pose import (PoseDetector, emit_result,
+                                              results_to_host)
+    from tpupose_torch.ops.gaussian import gaussian_blur_conv_zero
+    from tpupose_torch.ops.peaks import find_peaks, nms_mask_ge
+    from tpupose_torch.ops.postprocess import postprocess_pose
+
+    ccfg = dataclasses.replace(cfg, nms_mode="conv")
+    x = torch.from_numpy(_plateau_maps(np.random.RandomState(4), 18, 320,
+                                       432))
+    xc = x.cuda()
+    args = (ccfg.gaussian_sigma, ccfg.heatmap_peak_thresh)
+    s_card = gaussian_blur_conv_zero(xc, ccfg.gaussian_sigma, ccfg.ksize)
+    s_cpu = gaussian_blur_conv_zero(x, ccfg.gaussian_sigma, ccfg.ksize)
+    mask_card = nms_mask_ge(s_card, args[1]).cpu()
+    mask_cpu = nms_mask_ge(s_cpu, args[1])
+    got = find_peaks(xc, *args, ccfg.max_peaks_per_joint, mode="conv",
+                     ksize=ccfg.ksize)
+    ref = find_peaks(x, *args, ccfg.max_peaks_per_joint, mode="conv",
+                     ksize=ccfg.ksize)
+    if not (torch.equal(s_card.cpu(), s_cpu)
+            and torch.equal(mask_card, mask_cpu)
+            and all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))):
+        raise AssertionError("conv-mode peaks: card != CPU")
+    find_ms = _host_ms(lambda: find_peaks(
+        xc, *args, ccfg.max_peaks_per_joint, mode="conv",
+        ksize=ccfg.ksize), 5)
+    print(f"conv-mode find_peaks (18, 320, 432), ksize {ccfg.ksize}: "
+          f"smoothed maps bit-equal, masks ({int(mask_cpu.sum())} peaks) "
+          f"and peak tables ({int(ref.valid.sum())} kept) equal to the "
+          f"CPU's; {find_ms!r} ms (host, median of 5)")
+
+    det = PoseDetector(cfg=ccfg, device="cuda")
+    det.model = f32_det.model
+    _reset_counts()
+    tables = [det(f) for f in frames]
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    add(counts)
+    if any(counts.values()):
+        raise AssertionError(f"conv mode launched kernels: {counts}")
+    (paf, hm), (sx, sy) = det.compute_maps(frames[0])
+    with torch.no_grad():
+        on_cpu = postprocess_pose(paf.cpu(), hm.cpu(), paf.shape[-1], ccfg)
+    cpu_table = emit_result(results_to_host([on_cpu])[0], sx, sy,
+                            warned=True)[:2]
+    if not _same_tables(tables[0], cpu_table, score_atol=1e-4):
+        raise AssertionError("conv-mode __call__ != the CPU postprocess")
+    call_ms = _host_ms(lambda: det(frames[0]), 5)
+    print(f"conv-mode __call__: poses {[len(p) for p, _ in tables]}, "
+          f"frame 0 equal to the CPU postprocess of the card's maps; "
+          f"{call_ms!r} ms (median of 5); launches {counts}")
+
+
+def _host_pyramid(p32, cfg, frames, add):
+    """Phase 11, host pyramid: precise ``__call__`` with
+    ``device_pyramid=False`` beside the device pyramid's tables on the same
+    weights; one scale's maps against a CPU forward of the same
+    host-resized input."""
+    import dataclasses
+
+    import torch
+
+    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+
+    hcfg = dataclasses.replace(cfg, device_pyramid=False)
+    det = PoseDetector(cfg=hcfg, device="cuda", precise=True)
+    det.model = p32.model
+    _reset_counts()
+    tables = [det(f) for f in frames[:2]]
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    shapes = _read_shapes()
+    add(counts)
+    if counts["blur_nms"] != 2 or sorted(shapes["blur_nms"]) != [
+            (18, *frames.shape[1:3])]:
+        raise AssertionError(f"host pyramid launches {counts}, shapes "
+                             f"{shapes['blur_nms']}")
+    call_ms = _host_ms(lambda: det(frames[0]), 3)
+    device = [p32(f) for f in frames[:2]]
+    same = [_same_tables(a, b, score_atol=1e-3)
+            for a, b in zip(tables, device)]
+
+    orig_hw = frames.shape[1:3]
+    _, scaled_hw, padded_hw = det._pyramid_geometries(*orig_hw)[0]
+    padded, pad = det._host_scaled(frames[:1], scaled_hw)
+    cpu = PoseDetector(cfg=hcfg, device="cpu", precise=True)
+    cpu.model.load_state_dict(p32.model.state_dict())
+    with float32_numerics(), torch.no_grad():
+        got = det._padded_scale_maps(torch.from_numpy(padded).cuda(), pad,
+                                     orig_hw)
+        ref = cpu._padded_scale_maps(torch.from_numpy(padded), pad, orig_hw)
+    for name, g, r in zip(("paf", "heatmap"), got, ref):
+        err = (g.cpu() - r).abs().max().item()
+        print(f"host pyramid scale {scaled_hw} (padded {padded_hw}) {name} "
+              f"maps card vs CPU: max_abs_err {err!r} (max |ref| "
+              f"{r.abs().max().item()!r})")
+        if not err <= 1e-4 * r.abs().max().item():
+            raise AssertionError(f"host pyramid {name} maps: card != CPU")
+    print(f"host pyramid precise __call__: {call_ms!r} ms (median of 3), "
+          f"poses {[len(p) for p, _ in tables]} (device pyramid "
+          f"{[len(p) for p, _ in device]}, tables equal {same}); "
+          f"launches {counts}")
+    return shapes
+
+
+class _EvalSamples:
+    """``EVAL_IMAGES`` seeded 480x640 frames with COCO-style GT, built here
+    (the card's machine has no cv2 to read COCO's JPEGs): the f32
+    detector's own persons, jittered by up to 4 px; an extra unmatched
+    person on frame 3, a crowd region on frame 5, no person on the last."""
+
+    def __init__(self, det, frames):
+        import numpy as np
+
+        from tpupose_torch.evaluation import pose18_to_coco17
+
+        rng = np.random.RandomState(11)
+        extra = rng.randint(0, 256, (EVAL_IMAGES - len(frames),
+                                     *frames.shape[1:])).astype(np.uint8)
+        self.frames = np.concatenate([frames, extra])
+        self.gts = []
+        for i, frame in enumerate(self.frames):
+            gts = []
+            if i < EVAL_IMAGES - 1:
+                poses, _ = det(frame)
+                for pose in poses[:3]:
+                    k = pose18_to_coco17(pose)
+                    k[:, :2] += rng.uniform(-4, 4, (17, 2)) * (k[:, 2:] > 0)
+                    gts.append(self._gt(k))
+            if i == 3:
+                k = np.zeros((17, 3))
+                k[:, 0] = rng.uniform(20, 200, 17)
+                k[:, 1] = rng.uniform(20, 200, 17)
+                k[:, 2] = 2
+                gts.append(self._gt(k))
+            if i == 5:
+                gts.append({"keypoints": [0.0] * 51, "num_keypoints": 0,
+                            "area": 10000.0, "iscrowd": 1,
+                            "bbox": [500.0, 300.0, 100.0, 100.0]})
+            self.gts.append(gts)
+
+    @staticmethod
+    def _gt(k):
+        import numpy as np
+
+        vis = k[:, 2] > 0
+        xs, ys = k[vis, 0], k[vis, 1]
+        w, h = float(np.ptp(xs)), float(np.ptp(ys))
+        return {"keypoints": [float(v) for v in k.reshape(-1)],
+                "num_keypoints": int(vis.sum()), "iscrowd": 0,
+                "area": max(w * h, 1.0),
+                "bbox": [float(xs.min()), float(ys.min()), w, h]}
+
+    def __len__(self):
+        return EVAL_IMAGES
+
+    def eval_sample(self, i):
+        return self.frames[i], self.gts[i], i + 1
+
+
+class _GroundTruthDetector:
+    """Returns each sample's GT persons as its detections: AP must be 1."""
+
+    def __init__(self, samples):
+        self.samples = samples
+        self.i = 0
+
+    def __call__(self, img):
+        import numpy as np
+
+        from tpupose_torch.evaluation import COCO_JOINT_ORDER
+
+        people = [g for g in self.samples.gts[self.i] if not g["iscrowd"]]
+        self.i += 1
+        poses = np.zeros((len(people), 18, 3))
+        for n, g in enumerate(people):
+            k = np.asarray(g["keypoints"]).reshape(17, 3)
+            for c, joint in enumerate(COCO_JOINT_ORDER):
+                poses[n, joint] = k[c]
+        return poses, np.linspace(0.9, 0.5, len(people))
+
+
+def _evaluate(f32_det, qdet, frames, add):
+    """Phase 11, evaluate: ``evaluate_detector`` over in-memory samples for
+    the fast f32, fast int8 and bucketed detectors, at pipeline depths 2
+    and 0 (equal metrics); GT fed back scores AP 1.0."""
+    import torch
+
+    from tpupose_torch.apps.evaluate import evaluate_detector
+    from tpupose_torch.detectors.bucketed import (BucketedPoseDetector,
+                                                  canvas_palette)
+
+    samples = _EvalSamples(f32_det, frames)
+    n_gt = sum(len(g) for g in samples.gts)
+    shapes = {}
+    for label, det, per_frame in (
+            ("f32", f32_det, {"blur_nms": 1, "conv7_s8": 0, "conv_s8": 0}),
+            ("int8", qdet, {"blur_nms": 1, "conv7_s8": 50, "conv_s8": 30}),
+            ("bucketed", BucketedPoseDetector(
+                f32_det, canvases=canvas_palette(640)),
+             {"blur_nms": 1, "conv7_s8": 0, "conv_s8": 0})):
+        _reset_counts()
+        runs = {d: evaluate_detector(det, samples, verbose=False,
+                                     pipeline_depth=d) for d in (2, 0)}
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        add(counts)
+        _merge_shapes(shapes, _read_shapes())
+        want = {k: 2 * EVAL_IMAGES * v for k, v in per_frame.items()}
+        if {k: counts[k] for k in want} != want or \
+                counts["requant_epilogue"]:
+            raise AssertionError(f"evaluate {label}: launches {counts}, "
+                                 f"expected {want}")
+        (m2, _), (m0, _) = runs[2], runs[0]
+        if {k: v for k, v in m2.items() if k != "seconds_per_image"} != \
+                {k: v for k, v in m0.items() if k != "seconds_per_image"}:
+            raise AssertionError(f"evaluate {label}: depth 2 metrics "
+                                 f"{m2} != depth 0 {m0}")
+        print(f"evaluate {label} over {EVAL_IMAGES} images ({n_gt} GT "
+              f"annotations): AP {m2['AP']!r}, AP50 {m2['AP50']!r}, AR "
+              f"{m2['AR']!r}; seconds_per_image depth 2 "
+              f"{m2['seconds_per_image']!r}, depth 0 "
+              f"{m0['seconds_per_image']!r}; launches {counts}")
+    oracle, _ = evaluate_detector(_GroundTruthDetector(samples), samples,
+                                  verbose=False, pipeline_depth=0)
+    if oracle["AP"] != 1.0:
+        raise AssertionError(f"GT fed back scores AP {oracle['AP']}")
+    print(f"evaluate: GT fed back as detections scores AP {oracle['AP']}")
+    return shapes
+
+
+def _profiling(f32_det, frames, root):
+    """Phase 11, profiling: ``trace()`` around one fast frame names
+    blur_nms's kernel and the ``pose_fast_368x496`` span; a
+    ``StageTimer`` over three frames."""
+    import torch
+
+    from tpupose_torch.utils.profiling import TRACE_FILE, StageTimer, trace
+
+    logdir = os.path.join(root, "trace")
+    f32_det(frames[0])
+    torch.cuda.synchronize()
+    with trace(logdir):
+        f32_det(frames[0])
+        torch.cuda.synchronize()
+    with open(os.path.join(logdir, TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    (in_h, in_w), _ = f32_det._geometry(*frames.shape[1:3])
+    span = f"pose_fast_{in_h}x{in_w}"
+    kernels = sorted(n for n in names if "blur_nms_kernel" in n)
+    size = os.path.getsize(os.path.join(logdir, TRACE_FILE))
+    print(f"trace of one fast frame: {size} bytes, {len(names)} event "
+          f"names; span {span!r} present: "
+          f"{span in names}; blur_nms kernels {kernels}")
+    if span not in names or not kernels:
+        raise AssertionError("the trace lacks the pose_fast span or the "
+                             "blur_nms kernel")
+    timer = StageTimer()
+    for f in frames:
+        with timer.stage("submit") as out:
+            out["result"] = handle = f32_det.submit(f)
+        with timer.stage("collect"):
+            f32_det.collect(handle)
+    print("StageTimer over 3 fast frames (submit waits for its result):\n"
+          + timer.report())
+
+
+def run_modes(f32_det, qdet, cfg, frames, smi):
+    """Phase 11: the detectors' other modes and the evaluation harness on
+    the card (bf16, conv NMS, the host pyramid, ``evaluate_detector``,
+    profiling).  Returns the kernel launches of its counted runs."""
+    import shutil
+    import tempfile
+
+    from tpupose_torch.ops import _cuda_build
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    from tpupose_torch.detectors.pose import PoseDetector
+    from tpupose_torch.utils.calibrate import calibrate_output_convs
+
+    # the precise paths' weights, recalibrated at the postprocess's
+    # resolution as phase 6 does
+    p32 = PoseDetector(cfg=cfg, device="cuda", seed=0, precise=True)
+    p32.model.load_state_dict(f32_det.model.state_dict())
+    if not calibrate_output_convs(p32, frames[0]):
+        raise AssertionError("calibration found no output convs")
+    os.makedirs(_cuda_build.BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="modes-", dir=_cuda_build.BUILD_DIR)
+    shapes = {}
+    try:
+        t = {}
+        t0 = time.perf_counter()
+        _merge_shapes(shapes, _bf16_modes(f32_det, p32, cfg, frames, root,
+                                          add))
+        t["bf16"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _conv_mode(f32_det, cfg, frames, add)
+        t["conv"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _merge_shapes(shapes, _host_pyramid(p32, cfg, frames, add))
+        t["host_pyramid"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _merge_shapes(shapes, _evaluate(f32_det, qdet, frames, add))
+        t["evaluate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _profiling(f32_det, frames, root)
+        t["profiling"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in _wrappers():
+        shapes.setdefault(name, {})
+    check_path_shapes("phase 11", cfg, shapes)
+    print(f"phase 11 ({smi}): launches {totals}; seconds "
+          + json.dumps({k: round(v, 2) for k, v in t.items()})
+          + f", phase {time.perf_counter() - t_phase:.2f} s")
+    return totals
+
+
 TRAIN_INSIZE = 368       # the reference trainer's crop
 TRAIN_BATCH = 10         # and batch
 TRAIN_TIMED = 10         # timed steps after 2 warm-up steps
@@ -2468,6 +2983,7 @@ def main() -> int:
           f"tiny frames {time.perf_counter() - t2:.2f} s")
     serving_counts = run_serving(f32_det, qdet, pdet, face, cfg, frames,
                                  smi.stdout.strip())
+    modes_counts = run_modes(f32_det, qdet, cfg, frames, smi.stdout.strip())
     del f32_det, qdet, pdet, face
     torch.cuda.empty_cache()
     run_training(smi.stdout.strip())
@@ -2480,7 +2996,7 @@ def main() -> int:
     # launches: the sum over the driven paths, each counted from zero
     launches = {name: quant_counts[name] + precise_counts[name]
                 + crop_counts[name] + serving_counts[name]
-                for name in quant_counts}
+                + modes_counts[name] for name in quant_counts}
     launches["blur_nms"] += fast_launches
     # requant runs on the im2col route only: its launches are those of
     # phase 7's im2col forward

@@ -376,13 +376,3 @@ def test_draw_matches_jax():
         got = getattr(tdraw, name)(img, *args)
         np.testing.assert_array_equal(got, getattr(jdraw, name)(img, *args),
                                       err_msg=name)
-
-
-@pytest.mark.parametrize("flags, match", [
-    (["--bf16"], "1.25"), (["--nms-mode", "conv"], "1.18")])
-def test_demo_unported_flags_name_their_roadmap_item(flags, match):
-    from tpupose_torch.apps.demo import main
-
-    with pytest.raises(NotImplementedError, match=match):
-        main(["--img", "frame.png", "--device", "cpu", *flags])
-

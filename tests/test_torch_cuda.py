@@ -756,3 +756,126 @@ def test_resume_on_the_card_equals_an_uninterrupted_run(cuda_device,
     for (name, a), b in zip(full.model.state_dict().items(),
                             resumed.model.state_dict().values()):
         assert torch.equal(a, b), name
+
+
+# --- the detectors' other modes: conv NMS, bfloat16, the host pyramid ------
+
+
+def _plateaus(rng, j, h, w):
+    """Planted peaks plus 2-pixel plateaus the ``>=`` rule keeps."""
+    hm = _planted(rng, j, h, w)
+    for c in range(j):
+        y, x = rng.randint(2, h - 2), rng.randint(2, w - 3)
+        hm[c, y - 2:y + 3, x - 2:x + 4] = 0.0
+        hm[c, y, x:x + 2] = 2.0
+    return hm
+
+
+@pytest.mark.parametrize("shape", [(18, 320, 432), (4, 46, 62)])
+def test_conv_mode_peaks_on_the_card_equal_the_cpu(cuda_device, shape):
+    """``find_peaks(mode="conv")`` is plain PyTorch on both devices (no
+    kernel): the smoothed maps bit-equal (eager products and sums round
+    alike), masks and peak tables equal, plateaus included; blur_nms does
+    not launch."""
+    from tpupose_torch.ops import gaussian
+    from tpupose_torch.ops.peaks import find_peaks, nms_mask_ge
+
+    x = torch.from_numpy(_plateaus(np.random.RandomState(3), *shape))
+    before = bn.blur_nms.launches
+    s = gaussian.gaussian_blur_conv_zero(x.to(cuda_device), 2.5, 17)
+    assert torch.equal(s.cpu(), gaussian.gaussian_blur_conv_zero(x, 2.5, 17))
+    assert torch.equal(nms_mask_ge(s, 0.05).cpu(),
+                       nms_mask_ge(s.cpu(), 0.05))
+    got = find_peaks(x.to(cuda_device), 2.5, 0.05, 32, mode="conv")
+    ref = find_peaks(x, 2.5, 0.05, 32, mode="conv")
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    assert bn.blur_nms.launches == before
+    assert int(ref.valid.sum()) >= 2 * shape[0]
+
+
+def test_bf16_detector_on_the_card_matches_the_cpu(cuda_device):
+    """bfloat16 parameters at rest, float32 maps within 5e-2 x max|ref| of
+    the CPU's bfloat16 forward at every pixel and 5e-3 x max|ref| in rms
+    (both round each layer to bfloat16, in other summation orders: the
+    CPU tests' bounds against JAX), the postprocess on the card's
+    blur_nms kernel."""
+    cfg = InferenceConfig(img_size=96, heatmap_size=88, max_subsets=128,
+                          n_subset_limbs_thresh=2, subset_score_thresh=0.05)
+    frame = np.random.RandomState(0).randint(0, 256, (96, 128, 3)).astype(
+        np.uint8)
+    f32 = PoseDetector(cfg=cfg, device="cpu", seed=0)
+    assert calibrate_output_convs(f32, frame)
+    dets = []
+    for device in (cuda_device, "cpu"):
+        det = PoseDetector(cfg=cfg, device=device, seed=0,
+                           compute_dtype=torch.bfloat16)
+        det.model.load_state_dict(f32.model.state_dict())
+        assert {p.dtype for p in det.model.parameters()} == {torch.bfloat16}
+        dets.append(det)
+    (paf, hm), _ = dets[0].compute_maps(frame)
+    (rpaf, rhm), _ = dets[1].compute_maps(frame)
+    for got, ref in ((paf, rpaf), (hm, rhm)):
+        assert got.dtype == torch.float32
+        diff = got.cpu() - ref
+        scale = ref.abs().max().item()
+        assert diff.abs().max().item() <= 5e-2 * scale
+        assert diff.pow(2).mean().sqrt().item() <= 5e-3 * scale
+    before = bn.blur_nms.launches
+    poses, _ = dets[0](frame)
+    assert bn.blur_nms.launches == before + 1
+    assert poses.shape[1:] == (18, 3)
+
+
+# sha256 of cv2.resize(img, size, INTER_CUBIC) with cv2.ipp.setUseIPP(False)
+# (OpenCV 5.0.0) for img = RandomState(7).randint(0, 256, (480, 640, 3)):
+# the card's machine has no cv2, so these pin its numpy emulation.
+CV2_CUBIC_SHA256 = {
+    (246, 184):
+        "1bc6c6d41c666d705a8a3f56978834f054ffd7b7799a43540a64feefb74d865f",
+    (496, 368):
+        "5f083e6add3959d4aed755c522e8b326ad734d2ce7694c28578b6efdd8edae61",
+    (982, 736):
+        "d20b0ef5ae18548415e0acd080af8f133d405b3f20e605ac49feefe46f30d4ad",
+    (5, 3):
+        "3bad83041882d376ae80b855553d9e0837e948e812f08ea9f0d3cb637023150e",
+}
+
+
+@pytest.mark.parametrize("size", sorted(CV2_CUBIC_SHA256))
+def test_resize_u8_cubic_on_the_card_machine_gives_cv2s_bytes(cuda_device,
+                                                              size):
+    import hashlib
+
+    from tpupose_torch.ops.resize import resize_u8_cubic
+
+    img = np.random.RandomState(7).randint(0, 256, (480, 640, 3)).astype(
+        np.uint8)
+    got = resize_u8_cubic(img, size)
+    assert got.shape == (size[1], size[0], 3)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == \
+        CV2_CUBIC_SHA256[size]
+
+
+def test_host_pyramid_on_the_card_matches_the_cpu(cuda_device):
+    """``device_pyramid=False``: the same host-resized frames on both
+    devices; each scale's maps within 1e-4 x max|ref| of the CPU's, and the
+    card's blur_nms runs the averaged maps."""
+    cfg = InferenceConfig(img_size=96, heatmap_size=88, max_subsets=128,
+                          n_subset_limbs_thresh=2, subset_score_thresh=0.05,
+                          device_pyramid=False)
+    frame = np.random.RandomState(1).randint(0, 256, (96, 128, 3)).astype(
+        np.uint8)
+    dets = [PoseDetector(cfg=cfg, device=d, seed=0, precise=True)
+            for d in (cuda_device, "cpu")]
+    assert calibrate_output_convs(dets[1], frame)
+    dets[0].model.load_state_dict(dets[1].model.state_dict())
+    got, _, _ = dets[0]._precise_scale_maps(frame[None])
+    ref, _, _ = dets[1]._precise_scale_maps(frame[None])
+    for g, r in zip(got, ref):
+        err = (g.cpu() - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item()
+    before = bn.blur_nms.launches
+    poses, _ = dets[0](frame)
+    assert bn.blur_nms.launches == before + 1
+    assert poses.shape[1:] == (18, 3)

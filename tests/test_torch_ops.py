@@ -207,13 +207,6 @@ def test_extract_peaks_tiny_map_pads_table():
     _assert_peaks_equal(got, ref)
 
 
-def test_find_peaks_conv_mode_is_not_ported():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tpeaks.find_peaks(torch.zeros(1, 8, 8), 2.5, 0.05, 4, mode="conv")
-    with pytest.raises(ValueError, match="unknown"):
-        tpeaks.find_peaks(torch.zeros(1, 8, 8), 2.5, 0.05, 4, mode="x")
-
-
 # ------------------------------------------------------ connections
 
 

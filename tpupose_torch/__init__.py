@@ -2,8 +2,8 @@
 
 The JAX package ``tpupose`` stays the reference; this package mirrors its
 module names (``models``, ``ops``, ``detectors``, ``data``, ``train``,
-``utils``, ``weights``, ``quant``) and is checked against it by
-``tests/test_torch_*.py``.  It imports ``torch`` and nothing of ``jax`` or
+``utils``, ``weights``, ``quant``, ``evaluation``, ``native``) and is
+checked against it by ``tests/test_torch_*.py``.  It imports ``torch`` and nothing of ``jax`` or
 of ``tpupose``: what it shares with the JAX package (the pose schema,
 ``InferenceConfig`` and ``TrainConfig``, the weight files' layer names, the
 data pipeline's host code) it keeps as its own copy.

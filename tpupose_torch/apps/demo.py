@@ -10,7 +10,8 @@ FaceNet forward, every hand crop through one batched HandNet forward.
 Usage:
   python -m tpupose_torch.apps.demo --img photo.png \\
       [--pose-weights coco_posenet.npz --face-weights facenet.npz \\
-       --hand-weights handnet.npz] [--precise] [--quant] [--out result.png]
+       --hand-weights handnet.npz] [--precise] [--quant] [--bf16] \\
+      [--nms-mode conv] [--out result.png]
 """
 
 from __future__ import annotations
@@ -98,12 +99,14 @@ def main(argv=None):
     p.add_argument("--precise", action="store_true",
                    help="multi-scale pose inference")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 network compute (not ported: ROADMAP.md "
-                        "Queue 1 item 1.25)")
+                   help="bfloat16 network compute for all three nets; map "
+                        "values shift ~1e-3, so keypoints may move a pixel "
+                        "from the float32 path's")
     p.add_argument("--nms-mode", choices=("scipy", "conv"), default="scipy",
                    help="peak NMS semantics: 'scipy' (reflect-boundary "
-                        "Gaussian, strict > rule); 'conv' is not ported "
-                        "(ROADMAP.md Queue 1 item 1.18)")
+                        "Gaussian, strict > rule, the reference's CPU "
+                        "path); 'conv' (zero-padded ksize Gaussian, >= "
+                        "rule, its GPU path)")
     p.add_argument("--tail-stride", type=int, default=16,
                    help="round face/hand tail-resize targets up to this "
                         "multiple (<= ~1 px keypoint shift); 1 = exact "
@@ -115,28 +118,29 @@ def main(argv=None):
                         "hand crops the cascade cuts")
     p.add_argument("--device", default="cuda", help="torch device")
     args = p.parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16: bfloat16 compute is not ported yet (ROADMAP.md, Queue 1 "
-            "item 1.25)")
-    if args.nms_mode == "conv":
-        raise NotImplementedError(
-            "--nms-mode conv is not ported yet (ROADMAP.md, Queue 1 item "
-            "1.18)")
+
+    import dataclasses
 
     import cv2
+    import torch
 
+    from tpupose_torch.config import INFERENCE
     from tpupose_torch.detectors import (FaceDetector, HandDetector,
                                          PoseDetector)
 
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    cfg = dataclasses.replace(INFERENCE, nms_mode=args.nms_mode)
     pose_detector = PoseDetector("posenet", weights_file=args.pose_weights,
-                                 precise=args.precise, device=args.device)
+                                 precise=args.precise, cfg=cfg,
+                                 device=args.device, compute_dtype=dtype)
     face_detector = FaceDetector("facenet", weights_file=args.face_weights,
                                  device=args.device,
-                                 tail_stride=args.tail_stride)
+                                 tail_stride=args.tail_stride,
+                                 compute_dtype=dtype)
     hand_detector = HandDetector("handnet", weights_file=args.hand_weights,
                                  device=args.device,
-                                 tail_stride=args.tail_stride)
+                                 tail_stride=args.tail_stride,
+                                 compute_dtype=dtype)
 
     img = cv2.imread(args.img)
     if img is None:

@@ -140,7 +140,7 @@ class InferenceConfig:
     downscale: int = 8           # network output stride
     gaussian_sigma: float = 2.5  # heatmap smoothing before peak NMS
     # Peak NMS: "scipy" (reflect-boundary Gaussian, strict ``>`` rule) or
-    # "conv" (zero-pad Gaussian conv of ``ksize``, ``>=`` rule; not ported).
+    # "conv" (zero-pad Gaussian conv of ``ksize``, ``>=`` rule).
     nms_mode: str = "scipy"
     ksize: int = 17              # conv-mode smoothing kernel size
     n_integ_points: int = 10     # samples along each candidate limb

@@ -2,9 +2,9 @@
 of ``tpupose/data/coco_json.py``).
 
 JSON index building, person-category filtering, polygon and RLE
-(compressed and uncompressed) segmentation decoding.  The RLE decode is
-numpy; the JAX package's C++ decoder (``tpupose/native/``) comes with the
-evaluate slice (ROADMAP 1.14).
+(compressed and uncompressed) segmentation decoding.  RLE decodes through
+the C++ decoder of ``tpupose_torch/native/`` (built with g++ at first use);
+the numpy decoders here are its plain versions.
 """
 
 from __future__ import annotations
@@ -16,7 +16,23 @@ import numpy as np
 
 
 def decode_compressed_rle(rle_str: str, h: int, w: int) -> np.ndarray:
-    """Decode COCO's compressed RLE string to a (h, w) uint8 mask.
+    """Decode COCO's compressed RLE string to a (h, w) uint8 mask, natively
+    (``native.rle_decode_native``)."""
+    from tpupose_torch.native import rle_decode_native
+
+    return rle_decode_native(rle_str, h, w)
+
+
+def rle_counts_to_mask(counts, h: int, w: int) -> np.ndarray:
+    """Uncompressed RLE counts -> (h, w) uint8 mask, natively."""
+    from tpupose_torch.native import rle_counts_to_mask_native
+
+    return rle_counts_to_mask_native(counts, h, w)
+
+
+def decode_compressed_rle_numpy(rle_str: str, h: int, w: int
+                                ) -> np.ndarray:
+    """Plain version of ``decode_compressed_rle``.
 
     Implements the LEB128-style char encoding used by the COCO API: each
     count is stored as a sequence of 6-bit chunks (+48 ascii offset), with
@@ -41,10 +57,11 @@ def decode_compressed_rle(rle_str: str, h: int, w: int) -> np.ndarray:
         if len(counts) > 2:
             x += counts[-2]
         counts.append(x)
-    return _rle_counts_to_mask(counts, h, w)
+    return rle_counts_to_mask_numpy(counts, h, w)
 
 
-def _rle_counts_to_mask(counts, h: int, w: int) -> np.ndarray:
+def rle_counts_to_mask_numpy(counts, h: int, w: int) -> np.ndarray:
+    """Plain version of ``rle_counts_to_mask``."""
     flat = np.zeros(h * w, np.uint8)
     pos = 0
     val = 0
@@ -72,7 +89,7 @@ def ann_to_mask(ann: dict, h: int, w: int) -> np.ndarray:
     sh, sw = seg["size"]
     if isinstance(counts, str):
         return decode_compressed_rle(counts, sh, sw)
-    return _rle_counts_to_mask(list(counts), sh, sw)
+    return rle_counts_to_mask(list(counts), sh, sw)
 
 
 class CocoAnnotations:

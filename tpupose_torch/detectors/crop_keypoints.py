@@ -12,8 +12,11 @@ the input was, blurred and reduced to one keypoint per channel
 (``global_argmax_keypoints``); every crop's ``(x, y, score, valid)`` comes
 back to the host in one device-to-host copy.
 
-``quantize()`` swaps the network forward for the w8a8 int8 one of
-``tpupose_torch/quant.py`` (input quant ``u8 - 128``, scale 1/256).
+``compute_dtype=torch.bfloat16`` runs the net in bfloat16 with its
+parameters stored in it (the JAX package's ``commit_variables(dtype=...)``);
+the net returns float32 maps.  ``quantize()`` swaps the network forward for
+the w8a8 int8 one of ``tpupose_torch/quant.py`` (input quant ``u8 - 128``,
+scale 1/256).
 
 ``_batch_forward_fn`` and ``_tail_fn`` are the two programs a crop bundle
 exports (``tpupose_torch/serving.py::save_crop_bundle``); the live
@@ -53,10 +56,12 @@ class CropKeypointDetector:
                  params=None,
                  device="cuda",
                  seed: int = 0,
-                 tail_stride: int = 1):
+                 tail_stride: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
         """``params``: a Flax param tree (numpy leaves) to load;
         ``weights_file``: a Chainer ``.npz``; otherwise the model keeps its
-        weights drawn from ``seed``.
+        weights drawn from ``seed``.  ``compute_dtype``: ``torch.float32``
+        or ``torch.bfloat16``, the net's compute dtype and its parameters'.
 
         ``tail_stride`` > 1 rounds each crop's tail-resize target up to a
         multiple, so crops of many sizes share few tail shapes; keypoint
@@ -69,13 +74,14 @@ class CropKeypointDetector:
         self.arch = arch
         self.cfg = cfg
         self.tail_stride = tail_stride
-        self.model = ARCHS[arch](seed=seed)
+        self.compute_dtype = compute_dtype
+        self.model = ARCHS[arch](seed=seed, dtype=compute_dtype)
         if params is not None:
             load_flax_params(self.model, params)
         elif weights_file:
             report = load_chainer_npz(self.model, weights_file)
             warn_on_load_report(report, weights_file, arch=arch)
-        self.model = self.model.to(self.device).eval()
+        self.model = self.model.to(self.device, compute_dtype).eval()
         # set by quantize()
         self.quantized = False
         self.qtree = None

@@ -2,8 +2,8 @@
 ``tpupose/detectors/face.py``).
 
 ``detector(face_img) -> list of 70 [x, y, conf] or None`` in crop pixels;
-the pipeline lives in ``CropKeypointDetector``.  The port runs float32 or,
-after ``quantize()``, int8; bfloat16 is ROADMAP item 1.25.
+the pipeline lives in ``CropKeypointDetector``.  It runs float32, bfloat16
+(``compute_dtype``) or, after ``quantize()``, int8.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from tpupose_torch.config import FACE, FaceConfig
 from tpupose_torch.detectors.crop_keypoints import CropKeypointDetector
@@ -23,10 +24,12 @@ class FaceDetector(CropKeypointDetector):
                  cfg: FaceConfig = FACE,
                  device="cuda",
                  seed: int = 0,
-                 tail_stride: int = 1):
+                 tail_stride: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(arch, cfg, weights_file=weights_file,
                          params=params, device=device, seed=seed,
-                         tail_stride=tail_stride)
+                         tail_stride=tail_stride,
+                         compute_dtype=compute_dtype)
 
     def __call__(self, face_img: np.ndarray):
         return self.detect_crop(face_img)

@@ -4,8 +4,8 @@
 ``detector(hand_img, hand_type="right") -> list of 21 [x, y, conf] or
 None``.  Left hands are detected by mirroring the input (a numpy flip) and
 un-mirroring the heatmaps on the device; the pipeline lives in
-``CropKeypointDetector``.  The port runs float32 or, after ``quantize()``,
-int8; bfloat16 is ROADMAP item 1.25.
+``CropKeypointDetector``.  It runs float32, bfloat16
+(``compute_dtype``) or, after ``quantize()``, int8.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from tpupose_torch.config import HAND, HandConfig
 from tpupose_torch.detectors.crop_keypoints import CropKeypointDetector
@@ -25,10 +26,12 @@ class HandDetector(CropKeypointDetector):
                  cfg: HandConfig = HAND,
                  device="cuda",
                  seed: int = 0,
-                 tail_stride: int = 1):
+                 tail_stride: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(arch, cfg, weights_file=weights_file,
                          params=params, device=device, seed=seed,
-                         tail_stride=tail_stride)
+                         tail_stride=tail_stride,
+                         compute_dtype=compute_dtype)
 
     def __call__(self, hand_img: np.ndarray, hand_type: str = "right"):
         return self.detect_crop(hand_img, flip=(hand_type == "left"))

@@ -9,15 +9,28 @@ cv2's INTER_LINEAR, so no cv2 is needed), ``/255 - 0.5``, CocoPoseNet, an
 align-corners resize of the last stage's maps, then the whole postprocess
 on the detector's device, and one device-to-host copy of the result.
 
-Precise path (``precise=True``, the device pyramid of the JAX package): the
-original frame is uploaded once; per scale of ``cfg.scales`` it is
-cubic-resized on the device (cv2's uint8 rounding emulated), placed on a
-stride-padded canvas of ``cfg.pad_value``, run through the network, and its
-last-stage maps are cubic-resized back to the postprocess resolution; the
-scales' maps are averaged and postprocessed there.
+Precise path (``precise=True``).  The device pyramid
+(``cfg.device_pyramid``, the default): the original frame is uploaded once;
+per scale of ``cfg.scales`` it is cubic-resized on the device (cv2's uint8
+rounding emulated), placed on a stride-padded canvas of ``cfg.pad_value``
+and run through the network.  The host pyramid (``device_pyramid=False``):
+per scale the frame is resized on the host with ``resize_u8_cubic`` (cv2's
+uint8 INTER_CUBIC, emulated exactly), padded with ``pad_image_np`` and
+uploaded.  Either way each scale's last-stage maps are cubic-resized back
+to the postprocess resolution; the scales' maps are averaged and
+postprocessed there.
 
-``quantize()`` swaps the network forward for the int8 one of
-``tpupose_torch/quant.py``; everything around it stays.
+``compute_dtype=torch.bfloat16`` runs the network in bfloat16, its
+parameters cast once at rest as the JAX package's ``commit_variables``
+does; the input stays float32 ``/255 - 0.5`` (the model casts it) and the
+model returns float32 maps, so the map resizes, ``blur_nms`` and the
+postprocess see float32 as on the float32 route.  ``quantize()`` swaps the
+network forward for the int8 one of ``tpupose_torch/quant.py``;
+everything around it stays.
+
+Each frame's work runs inside ``utils.profiling.annotate`` spans with the
+JAX package's program names (``pose_fast_HxW``, ``poseq_fast_HxW``,
+``pose_scale_HxW``, ``pose_avg_postprocess_HxW``).
 
 The traced programs that ``tpupose_torch/serving.py`` exports are built here
 (``_fast_fn``, ``_batch_fn``, ``_device_scale_fn``, ``_batch_scale_fn``,
@@ -46,10 +59,12 @@ from tpupose_torch.config import INFERENCE, NUM_JOINTS, InferenceConfig
 from tpupose_torch.models import ARCHS
 from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
-                                      resize_cv2_cubic, resize_u8_linear)
+                                      resize_cv2_cubic, resize_u8_cubic,
+                                      resize_u8_linear)
 from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
                                  model_params, qtree_to_device, quant_apply,
                                  quantize, resolve_conv7_impl)
+from tpupose_torch.utils.profiling import annotate
 from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
                                    warn_on_load_report)
 
@@ -57,6 +72,19 @@ from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
 def preprocess_u8(img_u8: torch.Tensor) -> torch.Tensor:
     """uint8 (..., H, W, 3) -> float32 ``/255 - 0.5``, channels last."""
     return img_u8.float() / 255.0 - 0.5
+
+
+def pad_image_np(img: np.ndarray, stride: int,
+                 pad_value: Tuple[int, int, int]):
+    """Pad bottom and right to a multiple of ``stride`` with a constant BGR
+    value; returns ``(padded, (pad_bottom, pad_right))``."""
+    h, w = img.shape[:2]
+    pad_b = (stride - h % stride) % stride
+    pad_r = (stride - w % stride) % stride
+    out = np.empty((h + pad_b, w + pad_r, 3), np.uint8)
+    out[...] = np.asarray(pad_value, np.uint8)
+    out[:h, :w] = img
+    return out, (pad_b, pad_r)
 
 
 @contextlib.contextmanager
@@ -134,14 +162,6 @@ def emit_result(result: PoseResult, scale_x: float, scale_y: float,
     return poses, scores, warned
 
 
-def _check_device_pyramid(cfg: InferenceConfig) -> None:
-    if not cfg.device_pyramid:
-        raise NotImplementedError(
-            "the host pyramid (cfg.device_pyramid=False, a host emulation "
-            "of cv2's uint8 INTER_CUBIC) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 22)")
-
-
 class PoseDetector:
     """Multi-person pose detector; the whole per-frame pipeline after the
     host resize (fast path) or the upload (precise path) runs on
@@ -153,12 +173,13 @@ class PoseDetector:
                  precise: bool = False,
                  cfg: InferenceConfig = INFERENCE,
                  device="cuda",
-                 seed: int = 0):
+                 seed: int = 0,
+                 compute_dtype: torch.dtype = torch.float32):
         """``params``: a Flax param tree (numpy leaves) to load;
         ``weights_file``: a Chainer ``.npz``; otherwise the model keeps its
-        weights drawn from ``seed``."""
-        if precise:
-            _check_device_pyramid(cfg)
+        weights drawn from ``seed``.  ``compute_dtype``: ``torch.float32``
+        or ``torch.bfloat16``, the network's compute dtype; the parameters
+        are stored in it."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -166,13 +187,14 @@ class PoseDetector:
         self.arch = arch
         self.precise = precise
         self.cfg = cfg
-        self.model = ARCHS[arch](seed=seed)
+        self.compute_dtype = compute_dtype
+        self.model = ARCHS[arch](seed=seed, dtype=compute_dtype)
         if params is not None:
             load_flax_params(self.model, params)
         elif weights_file:
             report = load_chainer_npz(self.model, weights_file)
             warn_on_load_report(report, weights_file, arch=arch)
-        self.model = self.model.to(self.device).eval()
+        self.model = self.model.to(self.device, compute_dtype).eval()
         # set by quantize()
         self.quantized = False
         self.qtree = None
@@ -205,7 +227,12 @@ class PoseDetector:
         ``min_side``: mixed precision; forwards whose network input's short
         side is below it keep the float32 model.  Default 0: every forward
         is int8 (``cfg.quant_min_side`` is a TPU measurement and is not
-        read)."""
+        read).
+
+        A bfloat16 detector calibrates with its bfloat16 forward and
+        quantizes its bfloat16 weights (read as float32), as the JAX
+        package's does; the heads stay float32, and ``min_side``'s
+        forwards keep the bfloat16 model."""
         if self.quantized:
             raise ValueError("detector is already quantized")
         conv7_impl = resolve_conv7_impl(conv7_impl, self.device)
@@ -229,7 +256,7 @@ class PoseDetector:
     def _forward(self, x: torch.Tensor, weights=None):
         """Network forward on normalized (B, H, W, 3) frames: the int8 one
         once quantized (unless the short side is below ``min_side``), else
-        the float32 model.  ``weights``: a traced program's weight inputs
+        the float model.  ``weights``: a traced program's weight inputs
         (``program_weights``' layout), or None for the detector's own."""
         if (self._quant_forward is not None
                 and min(x.shape[1], x.shape[2]) >= self._quant_min_side):
@@ -463,7 +490,8 @@ class PoseDetector:
     def _fused_small_pair(self, geoms):
         """Indices (small, large) of the two smallest pyramid scales when
         ``cfg.fuse_small_scales`` applies to this geometry, else None."""
-        if not (self.cfg.fuse_small_scales and len(geoms) >= 2):
+        if not (self.cfg.fuse_small_scales and self.cfg.device_pyramid
+                and len(geoms) >= 2):
             return None
         order = sorted(range(len(geoms)),
                        key=lambda k: geoms[k][2][0] * geoms[k][2][1])
@@ -474,16 +502,37 @@ class PoseDetector:
             return i, j
         return None
 
-    def _precise_maps(self, imgs: np.ndarray):
-        """(B, H, W, 3) uint8 original frames -> the scales' averaged
-        channel-first (B, 38, o_h, o_w) PAFs and (B, 19, o_h, o_w) heatmaps
-        at the postprocess resolution ``(o_h, o_w)``."""
+    def _padded_scale_maps(self, imgs_u8, pad, post_hw):
+        """The host pyramid's scale: (B, p_h, p_w, 3) uint8 frames already
+        resized and stride-padded on the host -> the scale's maps at
+        ``post_hw``; ``pad`` is the (bottom, right) padding."""
+        p_h, p_w = imgs_u8.shape[1:3]
+        pafs, heatmaps = self._forward(preprocess_u8(imgs_u8))
+        return self._scale_tail(pafs[-1], heatmaps[-1], (p_h, p_w),
+                                (p_h - pad[0], p_w - pad[1]), post_hw)
+
+    def _host_scaled(self, imgs: np.ndarray, scaled_hw):
+        """(B, H, W, 3) uint8 frames -> cubic-resized to ``scaled_hw`` and
+        padded to the stride on the host; returns (frames, (pad_bottom,
+        pad_right))."""
+        padded = [pad_image_np(resize_u8_cubic(img, scaled_hw[::-1]),
+                               self.cfg.downscale, self.cfg.pad_value)
+                  for img in imgs]
+        return np.stack([p for p, _ in padded]), padded[0][1]
+
+    def _precise_scale_maps(self, imgs: np.ndarray):
+        """(B, H, W, 3) uint8 original frames -> the scales' channel-last
+        (B, o_h, o_w, 38) PAFs and (B, o_h, o_w, 19) heatmaps, as two
+        lists, at the postprocess resolution ``(o_h, o_w)``, which is
+        returned third."""
         orig_h, orig_w = imgs.shape[1:3]
         post_hw = self._postprocess_hw(orig_h, orig_w)
         geoms = self._pyramid_geometries(orig_h, orig_w)
+        device_pyramid = self.cfg.device_pyramid
         with float32_numerics(), torch.no_grad():
-            imgs_u8 = torch.from_numpy(np.ascontiguousarray(imgs)).to(
-                self.device)
+            if device_pyramid:
+                imgs_u8 = torch.from_numpy(np.ascontiguousarray(imgs)).to(
+                    self.device)
             fused = {}
             pair = self._fused_small_pair(geoms)
             if pair is not None:
@@ -492,31 +541,63 @@ class PoseDetector:
                     imgs_u8, geoms[i][1:], geoms[j][1:], post_hw)
             paf_list, hm_list = [], []
             for k, (_, scaled_hw, padded_hw) in enumerate(geoms):
-                paf, hm = fused[k] if k in fused else \
-                    self._pyramid_scale_maps(imgs_u8, scaled_hw, padded_hw,
-                                             post_hw)
+                if k in fused:
+                    paf, hm = fused[k]
+                else:
+                    name = (f"{self._prefix_for(padded_hw)}_scale_"
+                            f"{scaled_hw[0]}x{scaled_hw[1]}")
+                    with annotate(name):
+                        if device_pyramid:
+                            paf, hm = self._pyramid_scale_maps(
+                                imgs_u8, scaled_hw, padded_hw, post_hw)
+                        else:
+                            padded, pad = self._host_scaled(imgs, scaled_hw)
+                            paf, hm = self._padded_scale_maps(
+                                torch.from_numpy(padded).to(self.device),
+                                pad, post_hw)
                 paf_list.append(paf)
                 hm_list.append(hm)
-            return self._average(paf_list, hm_list)
+        return paf_list, hm_list, post_hw
 
     # ------------------------------------------------------------------
     # entry points
     # ------------------------------------------------------------------
 
-    def _batch_maps(self, imgs: np.ndarray, precise: Optional[bool] = None):
-        """(B, H, W, 3) uint8 original frames -> the channel-first maps the
-        postprocess consumes and the map -> original scale factors; the
-        precise pyramid if ``precise`` (default: the detector's mode)."""
+    def _prefix_for(self, forward_hw: Tuple[int, int]) -> str:
+        """Program-name prefix of a forward at ``forward_hw``: ``poseq``
+        when it runs int8, else ``pose``."""
+        if (self.quantized
+                and min(forward_hw) >= self._quant_min_side):
+            return "poseq"
+        return "pose"
+
+    def _run(self, imgs: np.ndarray, precise: bool, postprocess: bool):
+        """(B, H, W, 3) uint8 original frames -> per frame its
+        ``PoseResult`` on the device (``postprocess``), or the batch's
+        channel-first maps the postprocess consumes; plus the map ->
+        original scale factors.  The precise pyramid if ``precise``."""
         orig_h, orig_w = imgs.shape[1:3]
-        if self.precise if precise is None else precise:
-            paf, hm = self._precise_maps(imgs)
+        if precise:
+            paf_list, hm_list, (map_h, map_w) = self._precise_scale_maps(
+                imgs)
+            prefix = "poseq" if self.quantized else "pose"
+            name = f"{prefix}_avg_postprocess_{map_h}x{map_w}"
+
+            def maps():
+                return self._average(paf_list, hm_list)
         else:
-            (in_h, in_w), map_hw = self._geometry(orig_h, orig_w)
+            (in_h, in_w), (map_h, map_w) = self._geometry(orig_h, orig_w)
             resized = np.stack([resize_u8_linear(img, (in_w, in_h))
                                 for img in imgs])
-            paf, hm = self._maps(resized, map_hw)
-        map_h, map_w = paf.shape[-2:]
-        return paf, hm, (orig_w / map_w, orig_h / map_h)
+            name = f"{self._prefix_for((in_h, in_w))}_fast_{in_h}x{in_w}"
+
+            def maps():
+                return self._maps(resized, (map_h, map_w))
+        with annotate(name):
+            paf, hm = maps()
+            out = ([self._postprocess(p, h) for p, h in zip(paf, hm)]
+                   if postprocess else (paf, hm))
+        return out, (orig_w / map_w, orig_h / map_h)
 
     def _postprocess(self, paf: torch.Tensor, hm: torch.Tensor) -> PoseResult:
         """``img_len`` is the map width: the fast path's map size, or the
@@ -527,15 +608,20 @@ class PoseDetector:
     def compute_maps(self, orig_img: np.ndarray):
         """The (pafs (38, h, w), heatmaps (19, h, w)) maps the postprocess
         consumes for this frame, plus the map -> original scale factors."""
-        paf, hm, scale = self._batch_maps(np.asarray(orig_img)[None])
+        (paf, hm), scale = self._run(np.asarray(orig_img)[None],
+                                     self.precise, postprocess=False)
         return (paf[0], hm[0]), scale
 
     def submit(self, orig_img: np.ndarray):
         """Run one frame up to its result on the device; returns a pending
         handle for ``collect``.  Kernels are queued asynchronously, except
         for the grouping fold's one read of its trip count."""
-        (paf, hm), (scale_x, scale_y) = self.compute_maps(orig_img)
-        return self._postprocess(paf, hm), scale_x, scale_y
+        return self._submit(orig_img, self.precise)
+
+    def _submit(self, orig_img: np.ndarray, precise: bool):
+        (result,), (scale_x, scale_y) = self._run(
+            np.asarray(orig_img)[None], precise, postprocess=True)
+        return result, scale_x, scale_y
 
     def collect(self, pending):
         """Copy a ``submit`` handle's result to the host; (poses, scores)."""
@@ -546,13 +632,7 @@ class PoseDetector:
         """The precise pyramid on one frame, whatever the detector's mode
         (as the JAX package's ``detect_precise``); ``__call__`` of a precise
         detector goes through it."""
-        return self.collect(self._submit_precise(orig_img))
-
-    def _submit_precise(self, orig_img: np.ndarray):
-        _check_device_pyramid(self.cfg)
-        paf, hm, (scale_x, scale_y) = self._batch_maps(
-            np.asarray(orig_img)[None], precise=True)
-        return self._postprocess(paf[0], hm[0]), scale_x, scale_y
+        return self.collect(self._submit(orig_img, precise=True))
 
     def detect_batch(self, imgs: np.ndarray):
         """(B, H, W, 3) uint8 same-sized frames -> list of (poses, scores).
@@ -560,11 +640,10 @@ class PoseDetector:
         One upload and one batched forward (per pyramid scale in precise
         mode); the postprocess runs per frame on the device, and one
         device-to-host copy fetches every result."""
-        imgs = np.asarray(imgs)
-        paf, hm, (scale_x, scale_y) = self._batch_maps(imgs)
-        results = results_to_host([self._postprocess(paf[i], hm[i])
-                                   for i in range(len(imgs))])
-        return [self._emit(r, scale_x, scale_y) for r in results]
+        results, (scale_x, scale_y) = self._run(
+            np.asarray(imgs), self.precise, postprocess=True)
+        return [self._emit(r, scale_x, scale_y)
+                for r in results_to_host(results)]
 
     def _emit(self, result, scale_x: float, scale_y: float):
         poses, scores, self._warned_saturation = emit_result(
@@ -572,8 +651,6 @@ class PoseDetector:
         return poses, scores
 
     def __call__(self, orig_img: np.ndarray):
-        if self.precise:
-            return self.detect_precise(orig_img)
         return self.collect(self.submit(orig_img))
 
 

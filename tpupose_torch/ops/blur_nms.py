@@ -28,17 +28,22 @@ from tpupose_torch.ops.gaussian import (gaussian_blur_reflect,
 MAX_RADIUS = 255
 
 
+def neighbour_shifts(h: torch.Tensor):
+    """The (up, down, left, right) neighbours of every pixel of (..., H, W)
+    maps, 0 outside the map."""
+    pad = torch.nn.functional.pad
+    return (pad(h[..., :-1, :], (0, 0, 1, 0)),
+            pad(h[..., 1:, :], (0, 0, 0, 1)),
+            pad(h[..., :, :-1], (1, 0)), pad(h[..., :, 1:], (0, 1)))
+
+
 def nms_mask(smoothed: torch.Tensor, thresh: float) -> torch.Tensor:
     """4-neighbour strict local-max mask with zero borders.
 
     smoothed: (..., H, W) -> bool mask of the same shape: ``> thresh`` and
     ``>`` each neighbour, where neighbours outside the map count as 0."""
     h = smoothed
-    pad = torch.nn.functional.pad
-    up = pad(h[..., :-1, :], (0, 0, 1, 0))
-    down = pad(h[..., 1:, :], (0, 0, 0, 1))
-    left = pad(h[..., :, :-1], (1, 0))
-    right = pad(h[..., :, 1:], (0, 1))
+    up, down, left, right = neighbour_shifts(h)
     return ((h > thresh) & (h > up) & (h > down) & (h > left)
             & (h > right))
 

@@ -3,6 +3,9 @@
 Per joint channel: SciPy-reflect Gaussian blur, then pixels strictly above
 the threshold and strictly above their 4 neighbours (out-of-image neighbours
 count as 0), gathered into a static ``(J, K)`` table in row-major scan order.
+``mode="conv"`` is the reference's GPU branch instead: a zero-padded
+``ksize`` Gaussian and the ``>=`` neighbour rule, plain PyTorch on every
+device (plain XLA in the JAX package: no kernel backs it).
 The face and hand nets take one keypoint per channel instead, its global
 argmax (``global_argmax_keypoints``).
 """
@@ -14,7 +17,9 @@ from typing import NamedTuple
 import torch
 
 from tpupose_torch.ops.blur_nms import nms_mask  # noqa: F401
-from tpupose_torch.ops.gaussian import gaussian_blur_reflect
+from tpupose_torch.ops.blur_nms import neighbour_shifts
+from tpupose_torch.ops.gaussian import (gaussian_blur_conv_zero,
+                                        gaussian_blur_reflect)
 from tpupose_torch.ops.library import blur_nms
 
 
@@ -33,6 +38,16 @@ class Peaks(NamedTuple):
     score: torch.Tensor
     valid: torch.Tensor
     dropped: torch.Tensor
+
+
+def nms_mask_ge(smoothed: torch.Tensor, thresh: float) -> torch.Tensor:
+    """4-neighbour ``>=`` local-max mask with zero borders (the reference's
+    GPU rule): ``> thresh`` and ``>=`` each neighbour, so every pixel of a
+    plateau is a peak, where ``nms_mask``'s strict rule keeps none."""
+    h = smoothed
+    up, down, left, right = neighbour_shifts(h)
+    return ((h > thresh) & (h >= up) & (h >= down) & (h >= left)
+            & (h >= right))
 
 
 def extract_peaks(mask: torch.Tensor, smoothed: torch.Tensor,
@@ -73,20 +88,23 @@ def extract_peaks(mask: torch.Tensor, smoothed: torch.Tensor,
 
 
 def find_peaks(heatmaps: torch.Tensor, sigma: float, thresh: float,
-               max_peaks: int, mode: str = "scipy") -> Peaks:
+               max_peaks: int, mode: str = "scipy", ksize: int = 17) -> Peaks:
     """Blur -> NMS -> static top-K table.
 
-    heatmaps: (J, H, W) *without* the background channel.  The fused blur +
-    NMS runs through :func:`blur_nms`, which picks the CUDA kernel for a CUDA
-    tensor and the plain version for a CPU one (through
+    heatmaps: (J, H, W) *without* the background channel.  ``"scipy"``: the
+    fused blur + NMS runs through :func:`blur_nms`, which picks the CUDA
+    kernel for a CUDA tensor and the plain version for a CPU one (through
     ``tpupose::blur_nms`` in a traced program); no map-size cut applies.
+    ``"conv"``: ``gaussian_blur_conv_zero`` of ``ksize`` and
+    ``nms_mask_ge``, plain PyTorch.
     """
     if mode == "conv":
-        raise ValueError(
-            "nms_mode='conv' is not ported yet (ROADMAP.md, Queue 1 item 18)")
-    if mode != "scipy":
+        smoothed = gaussian_blur_conv_zero(heatmaps, sigma, ksize)
+        mask = nms_mask_ge(smoothed, thresh)
+    elif mode == "scipy":
+        smoothed, mask = blur_nms(heatmaps.contiguous(), sigma, thresh)
+    else:
         raise ValueError(f"unknown peak NMS mode {mode!r}")
-    smoothed, mask = blur_nms(heatmaps.contiguous(), sigma, thresh)
     return extract_peaks(mask, smoothed, max_peaks)
 
 

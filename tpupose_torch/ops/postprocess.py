@@ -62,7 +62,7 @@ def postprocess_pose_from_rows(paf_rows: torch.Tensor,
 def _peaks(heatmaps: torch.Tensor, cfg: InferenceConfig):
     return find_peaks(heatmaps[:-1], cfg.gaussian_sigma,
                       cfg.heatmap_peak_thresh, cfg.max_peaks_per_joint,
-                      mode=cfg.nms_mode)
+                      mode=cfg.nms_mode, ksize=cfg.ksize)
 
 
 def _finish(peaks, connections, cfg: InferenceConfig) -> PoseResult:

@@ -1,5 +1,5 @@
-"""Resizes as dense interpolation matmuls, plus a numpy emulation of cv2's
-uint8 bilinear resize (port of ``tpupose/ops/resize.py``).
+"""Resizes as dense interpolation matmuls, plus numpy emulations of cv2's
+uint8 bilinear and bicubic resizes (port of ``tpupose/ops/resize.py``).
 
 The three matrix builders and ``compute_optimal_size`` are copies of the JAX
 module's numpy code (that module imports ``jax.numpy``, which this package
@@ -191,5 +191,81 @@ def resize_u8_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     s1 = rows[np.clip(sy + 1, 0, in_h - 1)]
     out = (((s0 * b0[:, None, None]) >> 16)
            + ((s1 * b1[:, None, None]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(
+        (h, w) + img.shape[2:])
+
+
+def _cv2_cubic_taps(in_size: int, out_size: int):
+    """Per-output source indices (4 taps, clamped to the axis) and 11-bit
+    coefficients of cv2's INTER_CUBIC: ``interpolateCubic``'s Keys weights
+    (A = -0.75) in float32 at the float32 fraction, scaled by 2048 and
+    rounded to short."""
+    scale = 1.0 / (out_size / in_size)
+    f = ((np.arange(out_size, dtype=np.float64) + 0.5) * scale
+         - 0.5).astype(np.float32)
+    src = np.floor(f).astype(np.int64)
+    x = (f - src.astype(np.float32)).astype(np.float32)
+    a, one = np.float32(-0.75), np.float32(1.0)
+    x1 = x + one
+    c0 = ((a * x1 - np.float32(5) * a) * x1 + np.float32(8) * a) * x1 \
+        - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * x - (a + np.float32(3))) * x * x + one
+    y = one - x
+    c2 = ((a + np.float32(2)) * y - (a + np.float32(3))) * y * y + one
+    c3 = one - c0 - c1 - c2
+    coef = np.stack([c0, c1, c2, c3], axis=1).astype(np.float32)
+    coef = np.clip(np.rint(coef * _COEF_SCALE), -32768, 32767).astype(
+        np.int64)
+    idx = np.clip(src[:, None] + np.arange(-1, 3)[None, :], 0, in_size - 1)
+    return idx, coef
+
+
+# cv2's vertical cubic pass runs 8 outputs at a time through float32 (two
+# 4-lane SSE vectors); the row's remaining outputs take the integer path.
+_CUBIC_VECTOR = 8
+
+
+def resize_u8_cubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_CUBIC)`` for uint8
+    HW or HWC images, in numpy: OpenCV's own algorithm (its generic
+    ``resizeGeneric`` path, which ``cv2.ipp.setUseIPP(False)`` selects).
+
+    Source indices clamp at both borders of both axes; the horizontal pass
+    is exact integer arithmetic on 11-bit coefficients; the vertical pass
+    is cv2's SIMD one: per output, ``S3*b3``, then ``S2*b2 + acc``,
+    ``S1*b1 + acc``, ``S0*b0 + acc`` in float32 with ``b = beta / 2048^2``,
+    rounded to nearest even and saturated, for the first multiple of 8 of
+    each row's ``w * channels`` values, and ``(sum S*beta + 2^21) >> 22``
+    for the rest.  ``size`` is ``(width, height)``.
+
+    cv2 builds that ship Intel's IPP as a HAL (5.0's wheels) run
+    INTER_CUBIC through IPP's float resize by default instead, which
+    rounds ~5% of the values one level the other way.
+    """
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"expected a uint8 HW or HWC image, got "
+                         f"{img.dtype} {img.shape}")
+    w, h = size
+    in_h, in_w = img.shape[:2]
+    if (in_h, in_w) == (h, w):
+        return img.copy()
+    x = img.reshape(in_h, in_w, -1).astype(np.int64)
+    cn = x.shape[2]
+    ix, alpha = _cv2_cubic_taps(in_w, w)
+    iy, beta = _cv2_cubic_taps(in_h, h)
+    rows = (x[:, ix] * alpha[None, :, :, None]).sum(axis=2)  # (in_h, w, cn)
+    s = rows[iy].reshape(h, 4, w * cn)                       # taps' rows
+    # integer path
+    out = ((s * beta[:, :, None]).sum(axis=1) + (1 << 21)) >> 22
+    # float path, over the vectorised prefix of each row
+    n_vec = (w * cn) // _CUBIC_VECTOR * _CUBIC_VECTOR
+    if n_vec:
+        b = beta.astype(np.float32) * np.float32(1.0 / (2048 * 2048))
+        sf = s[:, :, :n_vec].astype(np.float32)
+        acc = sf[:, 3] * b[:, 3, None]
+        for k in (2, 1, 0):
+            acc = sf[:, k] * b[:, k, None] + acc
+        out[:, :n_vec] = np.rint(acc).astype(np.int64)
     return np.clip(out, 0, 255).astype(np.uint8).reshape(
         (h, w) + img.shape[2:])

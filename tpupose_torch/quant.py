@@ -204,15 +204,16 @@ def _layer_spec(params, module: str, layer: str,
 def model_params(model: nn.Module) -> Dict[str, dict]:
     """A torch CPM model's convs as the JAX package's param tree:
     ``params[module][layer]["conv"]`` with numpy HWIO ``kernel`` and
-    ``bias``."""
+    ``bias``, float32 whatever the model's dtype (numpy has no
+    bfloat16)."""
     params: Dict[str, dict] = {}
     for name, conv in model.named_modules():
         if isinstance(conv, nn.Conv2d):
             module, layer, _ = name.split(".")
             params.setdefault(module, {})[layer] = {"conv": {
-                "kernel": conv.weight.detach().cpu().numpy().transpose(
-                    2, 3, 1, 0),
-                "bias": conv.bias.detach().cpu().numpy()}}
+                "kernel": conv.weight.detach().float().cpu().numpy()
+                .transpose(2, 3, 1, 0),
+                "bias": conv.bias.detach().float().cpu().numpy()}}
     return params
 
 

@@ -14,8 +14,10 @@ Layout of a bundle directory::
     meta.json      arch, mode, params_dtype, cfg, platforms and the
                    geometry table, with the JAX package's keys; int8
                    bundles add conv7_impl and quant_static
-    params.npz     the JAX package's keys: a float32 tree's Flax paths
-                   joined by '/', an int8 tree's ``qtree_to_flat`` keys
+    params.npz     the JAX package's keys: a float tree's Flax paths
+                   joined by '/' (stored float32 whatever params_dtype
+                   says: npz holds no bfloat16), an int8 tree's
+                   ``qtree_to_flat`` keys
     <program>.<platform>.pt2     one ``torch.export.save`` file per
                    program and platform; meta.json names each program
                    without the suffix: fast_<H>x<W>, fast_<H>x<W>_b<B>,
@@ -192,8 +194,9 @@ def save_bundle(det, path: str, image_sizes: List[Tuple[int, int]],
             "export with cfg.fuse_small_scales=False: the fused pair "
             "changes small-scale border values, and bundles pin exact "
             "serving semantics")
+    params_dtype = _params_dtype(det)
     os.makedirs(path, exist_ok=True)
-    params_dtype = _save_params(path, det.host_weights())
+    _save_params(path, det.host_weights(), params_dtype)
     ex = _Exporter(path, platforms, _canonical(det.program_weights("cpu")))
     u8, f32 = torch.uint8, torch.float32
 
@@ -308,22 +311,43 @@ def _unflatten_params(flat) -> dict:
     return params
 
 
-def _save_params(path: str, host_weights) -> str:
-    """Write params.npz from ``det.host_weights()``; returns the recorded
-    params dtype: ``"float32"`` (the port's float trees are float32) or
-    ``"quant-w8a8"`` for an int8 tree, stored with ``qtree_to_flat``."""
+def _params_dtype(det) -> str:
+    """The params dtype a bundle of ``det`` records: ``"quant-w8a8"`` for an
+    int8 tree, else the one float dtype of the model's parameters
+    (``"float32"`` or ``"bfloat16"``).  A model mixing float dtypes is
+    refused, as the JAX package refuses such a tree: one recorded dtype
+    could not rebuild it at load time."""
+    if det.quantized:
+        return _QUANT_DTYPE
+    names = sorted({str(v.dtype).removeprefix("torch.")
+                    for v in det.model.state_dict().values()
+                    if v.is_floating_point()})
+    if len(names) > 1:
+        raise ValueError(
+            f"param tree mixes float dtypes {names}; commit the detector's "
+            "params in one dtype before exporting")
+    return names[0] if names else "float32"
+
+
+def _save_params(path: str, host_weights,
+                 params_dtype: str = "float32") -> str:
+    """Write params.npz from ``det.host_weights()``: an int8 tree with
+    ``qtree_to_flat``, a float tree as float32.  Returns the params dtype
+    the bundle records: ``"quant-w8a8"`` for an int8 tree, else
+    ``params_dtype`` (``_params_dtype``'s)."""
     if "qlayers" in host_weights:
         np.savez(os.path.join(path, _PARAMS), **qtree_to_flat(host_weights))
         return _QUANT_DTYPE
     flat = _flatten_params(host_weights["params"])
     np.savez(os.path.join(path, _PARAMS),
              **{k: v.astype(np.float32) for k, v in flat.items()})
-    return "float32"
+    return params_dtype
 
 
 def load_params(path: str, meta: dict, device):
     """A bundle's params.npz as its programs take them, on ``device``: the
-    ``state_dict`` of a float32 bundle; the int8 device tree of a quantized
+    ``state_dict`` of a float bundle, cast to its ``params_dtype``
+    (``"float32"`` or ``"bfloat16"``); the int8 device tree of a quantized
     one, rebuilt by ``qtree_from_flat`` + ``qtree_to_device`` (the kernel
     route's packed weights are made here, never stored), with the float32
     ``state_dict`` under ``"f32"`` for a mixed tree.  Reads files the JAX
@@ -347,10 +371,12 @@ def load_params(path: str, meta: dict, device):
         if f32 is not None:
             weights["f32"] = tensors(state_dict_from_flax(f32))
         return _canonical(weights)
-    if pd != "float32":
-        raise ValueError(f"params_dtype {pd!r}: the port serves float32 "
-                         "and quant-w8a8 bundles")
-    return _canonical(tensors(state_dict_from_flax(_unflatten_params(flat))))
+    if pd not in ("float32", "bfloat16"):
+        raise ValueError(f"params_dtype {pd!r}: the port serves float32, "
+                         "bfloat16 and quant-w8a8 bundles")
+    state = tensors(state_dict_from_flax(_unflatten_params(flat)))
+    return _canonical({k: v.to(getattr(torch, pd))
+                       for k, v in state.items()})
 
 
 def _read_meta(path: str) -> dict:
@@ -545,8 +571,9 @@ def save_crop_bundle(det, path: str, crop_sizes: List[Tuple[int, int]],
     Quantized (w8a8) detectors export their int8 programs and tree the same
     way."""
     platforms = _check_platforms(platforms)
+    params_dtype = _params_dtype(det)
     os.makedirs(path, exist_ok=True)
-    params_dtype = _save_params(path, det.host_weights())
+    _save_params(path, det.host_weights(), params_dtype)
     ex = _Exporter(path, platforms, _canonical(det.program_weights("cpu")))
     s = det.cfg.img_size
     net_hw = (s // 8, s // 8)
