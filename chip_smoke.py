@@ -157,9 +157,35 @@ counters).
    ``StageTimer.report()`` over three frames.  Every kernel is re-checked
    at every shape the phase gave it.
 
+12. The (data, spatial) mesh (``tpupose_torch/parallel``) and the camera
+   app (``run_parallel``, after phase 10), at full width.  (a) This process
+   as a world of one over NCCL, a 1x1 mesh: a CocoPoseNet train step at
+   368, B = 4, bit-equal to the mesh-less step.  Then rank groups spawned
+   after the kernels are built (``torch.multiprocessing``), gloo, every
+   rank on card 0: (b) two ranks, a 2x1 mesh: 3 steps at global B = 4
+   against one process at B = 4 (losses within ``P12_LOSS_RTOL``, step
+   1's reduced gradients within ``P12_GRAD_REL`` x the model's max|g|,
+   parameters within ``P12_PARAM_MAX_LR`` x lr with at most
+   ``P12_PARAM_FAR`` of them off by more than 1e-2 x lr; equal on both
+   ranks); (c) the same two ranks, a 1x2 mesh: f32 ``detect_batch`` of two
+   480x640 frames, slab maps within ``P12_F32_MAP_REL`` x max|ref| of the
+   mesh-less twin's and tables equal, then both quantized on the same
+   frame: int8 maps bit-equal and tables equal, conv7_s8 and conv_s8
+   launching on slab shapes (counted) and held against their plain
+   versions at every shape; (d) four ranks, a 2x2 mesh: f32
+   ``detect_batch`` of four frames, tables equal to the mesh-less call's.
+   With two cards or more, (b) also runs over NCCL, one card a rank.
+   (e) The camera loops (``apps/camera.py``) over 8 in-memory 480x640
+   frames without cv2: pipelined pose tables equal to serial
+   ``__call__``'s, ``--batch 4`` over 7 frames (a padded tail of 3), face
+   keypoints from pose-located crops equal to ``detect_batch`` on the
+   same crops.  Prints the variants run, each one's seconds, step or
+   frame ms (the host clock; gloo on one card is not a data-parallel
+   speed) and launches.
+
 The last two lines are the kernels' JSON record (each kernel's time, plain
 time, bound and launches on the driven paths, the crop nets' and the
-serving phase's, bundles included;
+serving phase's, bundles and phase 12's ranks included;
 requant's launches are those of phase 7's im2col forward, the only route
 that runs it; phase 11's counted runs included) and the result line.
 """
@@ -2889,6 +2915,460 @@ def run_training(smi):
           + json.dumps({k: round(v, 4) for k, v in numbers.items()}))
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the (data, spatial) mesh and the camera loops
+# ---------------------------------------------------------------------------
+
+P12_TRAIN_BATCH = 4       # global batch of the meshed train steps
+P12_TRAIN_STEPS = 3
+P12_F32_MAP_REL = 1e-4    # f32 slab maps vs unsharded, x max|ref|
+P12_LOSS_RTOL = 1e-5      # meshed loss vs one process
+# Step 1's reduced gradients: each leaf's largest error, x the largest
+# |g| of the whole model.  Two B = 2 backwards summed differ from one
+# B = 4 backward in summation order only, but leaves whose batch terms
+# cancel to a small max|g| carry relative errors of 1e-4 to 1e-3 of their
+# own max|g| (stem.conv4_4_CPM 1.1e-4, Mconv5_stage2_L1 1.3e-3 of a max|g|
+# of 2e-6, in the first card runs), so the scale is the model's.
+P12_GRAD_REL = 1e-4
+# Parameters after the steps.  Adam divides each gradient element by its
+# own root mean square, so the float noise of a near-zero element (1e-7 x
+# max|g| of its leaf) can move its update by a fraction of the learning
+# rate: a CPU rehearsal at insize 64 moved 0.036% of the elements by more
+# than 1e-2 x lr, the largest by 0.18 x lr.
+P12_PARAM_MAX_LR = 0.5    # the largest difference, x lr
+P12_PARAM_FAR = 1e-3      # the share of elements off by more than 1e-2 x lr
+P12_CAMERA_FRAMES = 8
+P12_DEVICE = "cuda"       # every rank of a gloo group on card 0
+
+
+def _p12_frames(n, seed):
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(
+        0, 256, (n, 480, 640, 3)).astype(np.uint8)
+
+
+def _p12_detectors(cfg, mesh):
+    """A calibrated f32 detector on ``mesh`` and its mesh-less twin with
+    the same weights (calibrated on the same frame on every rank, then
+    broadcast from rank 0)."""
+    from tpupose_torch.detectors.pose import PoseDetector
+    from tpupose_torch.parallel import replicate
+    from tpupose_torch.utils.calibrate import calibrate_output_convs
+
+    ref = PoseDetector(cfg=cfg, device=mesh.device, seed=0)
+    if not calibrate_output_convs(ref, _p12_frames(1, 0)[0]):
+        raise AssertionError("calibration found no output convs")
+    det = PoseDetector(cfg=cfg, seed=0, mesh=mesh)
+    det.model.load_state_dict(ref.model.state_dict())
+    replicate(det.model, mesh)
+    ref.model.load_state_dict(det.model.state_dict())
+    return det, ref
+
+
+def _p12_train(mesh, numbers, label):
+    """(a) and (b): P12_TRAIN_STEPS meshed CocoPoseNet steps at 368 on the
+    global batch; rank 0 then runs one process on the same batches and
+    holds the losses, step 1's reduced gradients and the parameters to
+    it.  Returns this rank's losses and a digest of its parameters."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tpupose_torch.config import TRAIN
+    from tpupose_torch.models import CocoPoseNet
+    from tpupose_torch.train import init_train_state, make_train_step
+
+    batches = _synthetic_batches(18, TRAIN_INSIZE, P12_TRAIN_BATCH,
+                                 P12_TRAIN_STEPS)
+    state = init_train_state(CocoPoseNet(seed=0), TRAIN, mesh=mesh)
+    step = make_train_step(TRAIN, mesh=mesh)
+    losses, grads, ms = [], None, []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads = _grads(state.model)
+    params = torch.cat([p.detach().reshape(-1)
+                        for p in state.model.parameters()])
+    digest = hashlib.sha256(params.cpu().numpy().tobytes()).hexdigest()
+    numbers[f"{label}_step_ms"] = statistics.median(ms)
+    if mesh.rank == 0:
+        ref = _train_state("posenet", torch.float32, TRAIN,
+                           device=mesh.device)
+        ref_step = make_train_step(TRAIN)
+        ref_losses = []
+        for i, batch in enumerate(batches):
+            ref, m = ref_step(ref, batch)
+            ref_losses.append(float(m["loss"]))
+            if i == 0:
+                ref_grads = _grads(ref.model)
+                scale = max(g.abs().max().item()
+                            for g in ref_grads.values())
+                worst = max((grads[n] - g).abs().max().item()
+                            for n, g in ref_grads.items()) / scale
+                if worst > P12_GRAD_REL:
+                    raise AssertionError(f"{label}: step 1's gradients off "
+                                         f"by {worst} x max|g| {scale}")
+        ref_params = torch.cat([p.detach().reshape(-1)
+                                for p in ref.model.parameters()])
+        diff = (params - ref_params).abs()
+        err = diff.max().item()
+        far = (diff > 1e-2 * TRAIN.lr).float().mean().item()
+        numbers[f"{label}_grad_rel"] = worst
+        numbers[f"{label}_param_err"] = err
+        numbers[f"{label}_param_far"] = far
+        numbers[f"{label}_loss_rel"] = max(
+            abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        if mesh.n_data * mesh.n_spatial == 1:
+            if losses != ref_losses or err != 0.0:
+                raise AssertionError(f"{label}: the 1x1 mesh's step is not "
+                                     f"bit-equal: {losses} {ref_losses} "
+                                     f"{err}")
+        elif (numbers[f"{label}_loss_rel"] > P12_LOSS_RTOL
+              or err > P12_PARAM_MAX_LR * TRAIN.lr or far > P12_PARAM_FAR):
+            raise AssertionError(f"{label}: meshed steps {losses} vs one "
+                                 f"process {ref_losses}, parameters off "
+                                 f"by {err} ({far} of them by more than "
+                                 "1e-2 x lr)")
+        del ref
+    del state
+    torch.cuda.empty_cache()
+    if mesh.distributed:
+        dist.barrier()
+    return losses, digest
+
+
+def _p12_detect(mesh, cfg, frames, numbers, label, int8):
+    """(c) and (d): meshed ``detect_batch`` and its maps against the
+    mesh-less twin on every rank: f32 maps within P12_F32_MAP_REL x
+    max|ref|, tables equal; with ``int8`` the quantized pair, maps
+    bit-equal and tables equal, its kernels' launches counted over the
+    meshed calls and each kernel held against its plain version at every
+    shape they gave it.  Returns the counted launches."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.detectors.pose import float32_numerics
+
+    det, ref = _p12_detectors(cfg, mesh)
+    counts = {}
+    with float32_numerics():
+        ref_maps = ref.compute_maps_batch(frames)[0]
+        ref_tables = ref.detect_batch(frames)
+        det.detect_batch(frames)                      # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        tables = det.detect_batch(frames)
+        numbers[f"{label}_f32_frame_ms"] = (
+            (time.perf_counter() - t0) * 1e3 / len(frames))
+        maps = det.compute_maps_batch(frames)[0]
+        counts["f32"] = _read_counts()
+        err = max(float(np.abs(m - r).max()) / float(np.abs(r).max())
+                  for m, r in zip(maps, ref_maps))
+        numbers[f"{label}_f32_map_rel"] = err
+        if err > P12_F32_MAP_REL:
+            raise AssertionError(f"{label}: f32 slab maps off by {err} x "
+                                 "max|ref|")
+        # slab convs may take other cuDNN algorithms: scores move by
+        # ~1e-6, coordinates stay (as __call__ against detect_batch)
+        if not _same_tables_list(tables, ref_tables, 1e-4):
+            raise AssertionError(f"{label}: f32 tables differ from the "
+                                 "mesh-less call's")
+        if sum(len(p) for p, _ in tables) < 1:
+            raise AssertionError(f"{label}: no pose found")
+        if not int8:
+            return counts
+        calib = [frames[0], frames[0][:, ::-1]]
+        ref.quantize(calib)
+        det.quantize(calib)
+        ref_q = ref.compute_maps_batch(frames)[0]
+        ref_tables = ref.detect_batch(frames)
+        _reset_counts()
+        t0 = time.perf_counter()
+        tables = det.detect_batch(frames)
+        numbers[f"{label}_int8_frame_ms"] = (
+            (time.perf_counter() - t0) * 1e3 / len(frames))
+        maps = det.compute_maps_batch(frames)[0]
+        counts["int8"] = _read_counts()
+        shapes = _read_shapes()
+        if not all(np.array_equal(m, r) for m, r in zip(maps, ref_q)):
+            raise AssertionError(f"{label}: int8 slab maps are not "
+                                 "bit-equal to the mesh-less int8 maps")
+        if not _same_tables_list(tables, ref_tables, 0.0):
+            raise AssertionError(f"{label}: int8 tables differ")
+        for name in ("conv7_s8", "conv_s8"):
+            if counts["int8"][name] < 1:
+                raise AssertionError(f"{label}: {name} never launched")
+        numbers[f"{label}_conv7_shapes"] = sorted(
+            (b, h, w) for b, h, w, _ in shapes["conv7_s8"])
+        check_path_shapes(f"phase 12 {label} int8", cfg, shapes)
+    del det, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _same_tables_list(a, b, score_atol):
+    return len(a) == len(b) and all(_same_tables(x, y, score_atol)
+                                    for x, y in zip(a, b))
+
+
+def _p12_rank(rank, world, port, backend, outdir, cfg):
+    """One rank of a phase-12 group: ``world`` 2 runs (b) on a 2x1 mesh
+    and (c) on a 1x2 mesh; ``world`` 4 runs (d) on a 2x2 mesh; with NCCL
+    (one card per rank) (b) only.  Writes its numbers and counted
+    launches to ``outdir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.parallel import initialize_distributed, make_mesh
+
+    device = (torch.device("cuda", rank) if backend == "nccl"
+              else torch.device(P12_DEVICE, 0))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                           backend=backend, device=device, timeout=600)
+    numbers, counts = {}, {}
+    t0 = time.perf_counter()
+    if world == 2:
+        mesh = make_mesh(2, 1, device=device, backend=backend)
+        with float32_numerics():
+            losses, digest = _p12_train(mesh, numbers, "b_2x1")
+        numbers["b_losses"], numbers["b_digest"] = losses, digest
+        numbers["b_s"] = time.perf_counter() - t0
+        if backend == "gloo":
+            t0 = time.perf_counter()
+            mesh = make_mesh(1, 2, device=device, backend=backend)
+            counts["c"] = _p12_detect(mesh, cfg, _p12_frames(2, 0), numbers,
+                                      "c_1x2", int8=True)
+            numbers["c_s"] = time.perf_counter() - t0
+    else:
+        mesh = make_mesh(2, 2, device=device, backend=backend)
+        counts["d"] = _p12_detect(mesh, cfg, _p12_frames(4, 12), numbers,
+                                  "d_2x2", int8=False)
+        numbers["d_s"] = time.perf_counter() - t0
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump({"numbers": numbers, "counts": counts}, f)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _p12_group(world, backend, cfg):
+    """Spawn a phase-12 group and return its ranks' records."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from tpupose_torch.ops import _cuda_build
+
+    outdir = tempfile.mkdtemp(prefix="phase12-", dir=_cuda_build.BUILD_DIR)
+    t0 = time.perf_counter()
+    mp.spawn(_p12_rank, args=(world, _free_port(), backend, outdir, cfg),
+             nprocs=world, join=True)
+    records = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    print(f"phase 12 group: {world} {backend} ranks in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return records
+
+
+def _p12_single_nccl(numbers):
+    """(a): this process as a world of one over NCCL, a 1x1 mesh: the
+    meshed train step bit-equal to the mesh-less one."""
+    import torch.distributed as dist
+
+    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                           backend="nccl", device="cuda", timeout=600)
+    try:
+        mesh = make_mesh(1, 1, device="cuda", backend="nccl")
+        with float32_numerics():
+            _p12_train(mesh, numbers, "a_1x1")
+    finally:
+        dist.destroy_process_group()
+
+
+def _p12_camera(cfg, numbers):
+    """(e): the camera app's loops over in-memory 480x640 frames, no cv2:
+    the pipelined pose loop's tables equal the serial ``__call__``'s;
+    ``--batch 4`` over 7 frames (a padded tail of 3) the same; the face
+    loop with pose-located crops equal to ``detect_batch`` on the same
+    crops.  Returns the counted launches."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.apps.camera import (pose_face_crops, stream_face,
+                                           stream_pose, stream_pose_batched)
+    from tpupose_torch.detectors import FaceDetector
+    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+    from tpupose_torch.utils.calibrate import (calibrate_crop_output_conv,
+                                               calibrate_output_convs)
+
+    frames = list(_p12_frames(P12_CAMERA_FRAMES, 3))
+    det = PoseDetector(cfg=cfg, device=P12_DEVICE, seed=0)
+    if not calibrate_output_convs(det, frames[0]):
+        raise AssertionError("calibration found no output convs")
+    serial = [det(f)[0] for f in frames]
+
+    def recorder():
+        seen = []
+        return seen, lambda img, poses: seen.append(poses) or img
+
+    _reset_counts()
+    seen, draw = recorder()
+    t0 = time.perf_counter()
+    n = stream_pose(det, iter(frames), draw, lambda img: None)
+    numbers["e_pose_frame_ms"] = (time.perf_counter() - t0) * 1e3 / n
+    if n != len(frames) or not all(np.array_equal(a, b)
+                                   for a, b in zip(seen, serial)):
+        raise AssertionError("camera: pipelined tables != __call__'s")
+    seen, draw = recorder()
+    t0 = time.perf_counter()
+    n = stream_pose_batched(det, iter(frames), draw, lambda img: None,
+                            batch=4, max_frames=7)
+    numbers["e_batch_frame_ms"] = (time.perf_counter() - t0) * 1e3 / n
+    if n != min(7, len(frames)) or not all(np.array_equal(a, b)
+                                           for a, b in zip(seen, serial)):
+        raise AssertionError("camera --batch 4: tables != __call__'s")
+    face = FaceDetector(device=P12_DEVICE, seed=0)
+    face_crops = [c for c, _ in pose_face_crops(det, frames[0])]
+    if face_crops:
+        calibrate_crop_output_conv(face, face_crops[:2])
+    got, located_all = [], []
+
+    def draw_faces(img, located, keypoints):
+        got.append(keypoints)
+        located_all.append(located)
+        return img
+
+    t0 = time.perf_counter()
+    with float32_numerics():
+        n = stream_face(face, iter(frames),
+                        lambda img: pose_face_crops(det, img), draw_faces,
+                        lambda img: None)
+    numbers["e_face_frame_ms"] = (time.perf_counter() - t0) * 1e3 / n
+    n_crops = sum(len(loc) for loc in located_all)
+    numbers["e_face_crops"] = n_crops
+    if n != len(frames) or n_crops < 1:
+        raise AssertionError(f"camera face: {n} frames, {n_crops} crops")
+    with float32_numerics():
+        for keypoints, located in zip(got, located_all):
+            if keypoints != face.detect_batch([c for c, _ in located]):
+                raise AssertionError("camera face: pipelined keypoints != "
+                                     "detect_batch's")
+    counts = _read_counts()
+    del det, face
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _p12_slab_conv7(bhw, numbers):
+    """conv7 at a slab shape of phase 12 (c), 128 -> 128: CUDA-graph
+    replays in turns with its plain version and ``_int_mm`` on the
+    prebuilt patch matrix, beside its bound."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.ops import conv7 as c7
+
+    parts, kernels, mults, bias = _conv7_case(np.random.RandomState(5),
+                                              *bhw, (128,))
+    packed = [c7.pack_conv7_weights(k) for k in kernels]
+    patches = _patch_matrix(parts[0], 7)
+    wmat = kernels[0].reshape(49 * 128, 128).contiguous()
+    times = _round_robin_ms({
+        "kernel": lambda: c7.conv7_s8(parts, kernels, mults, bias,
+                                      packed=packed),
+        "plain": lambda: c7.conv7_s8_reference(parts, kernels, mults,
+                                               bias),
+        "int_mm": lambda: torch._int_mm(patches, wmat)}, iters=20,
+        timer=_graph_ms)
+    bound, bound_by = conv7_bound(*bhw, (128,), 128)
+    numbers["c_slab_conv7_ms"] = dict(times, bound=bound, shape=list(bhw))
+    print(f"conv7_s8 at the slab shape {tuple(bhw)} 128 -> 128: "
+          + ", ".join(f"{k} {v!r} ms" for k, v in times.items())
+          + f", bound {bound!r} ms ({bound_by}) (CUDA-graph replays of 20 "
+          "calls, in turns)")
+
+
+def run_parallel(cfg, smi):
+    """Phase 12 (see the module docstring); returns its counted launches
+    summed over every process."""
+    import torch
+
+    t_phase = time.perf_counter()
+    numbers = {}
+    variants = []
+    t0 = time.perf_counter()
+    _p12_single_nccl(numbers)
+    numbers["a_s"] = time.perf_counter() - t0
+    variants.append("a: 1x1 NCCL world 1, train step bit-equal")
+    records = _p12_group(2, "gloo", cfg)
+    variants.append("b: 2x1 gloo on one card, 3 train steps")
+    variants.append("c: 1x2 gloo on one card, f32 + int8 detect_batch")
+    records4 = _p12_group(4, "gloo", cfg)
+    variants.append("d: 2x2 gloo on one card, f32 detect_batch B=4")
+    groups = [records]
+    if torch.cuda.device_count() >= 2:
+        nccl = _p12_group(2, "nccl", cfg)
+        groups.append(nccl)
+        variants.append("b over NCCL on 2 cards")
+        numbers.update({f"nccl_{k}": v for k, v in nccl[0]["numbers"].items()
+                        if k != "b_digest"})
+    for group in groups:
+        if len({json.dumps([r["numbers"]["b_digest"],
+                            r["numbers"]["b_losses"]])
+                for r in group}) != 1:
+            raise AssertionError("b: parameters or losses differ across "
+                                 "ranks")
+    _p12_slab_conv7(records[0]["numbers"]["c_1x2_conv7_shapes"][0],
+                    numbers)
+    t0 = time.perf_counter()
+    camera_counts = _p12_camera(cfg, numbers)
+    numbers["e_s"] = time.perf_counter() - t0
+    variants.append("e: camera loops, 8 in-memory 480x640 frames")
+    launches = dict(camera_counts)
+    by_variant = {"e": camera_counts}
+    for group in (records, records4):
+        for rank in group:
+            for variant, counts in rank["counts"].items():
+                for path, path_counts in counts.items():
+                    key = f"{variant} {path}"
+                    by_variant.setdefault(key, dict.fromkeys(launches, 0))
+                    for name, n in path_counts.items():
+                        launches[name] += n
+                        by_variant[key][name] += n
+    for group in (records, records4):
+        numbers.update({k: v for k, v in group[0]["numbers"].items()
+                        if k != "b_digest"})
+    numbers["phase12_s"] = time.perf_counter() - t_phase
+    print(f"phase 12 variants: {variants}")
+    print(f"phase 12 launches per variant (summed over the ranks): "
+          f"{by_variant}; in all {launches}")
+    print(f"phase 12 numbers ({smi}; ms on the host clock; gloo on one "
+          f"card, not a DP speed): " + json.dumps(numbers))
+    return launches
+
+
 def _start_resource_report(name):
     """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu`` (registers, shared
     memory and spills of each kernel); returns (process, cubin path)."""
@@ -2987,6 +3467,7 @@ def main() -> int:
     del f32_det, qdet, pdet, face
     torch.cuda.empty_cache()
     run_training(smi.stdout.strip())
+    parallel_counts = run_parallel(cfg, smi.stdout.strip())
 
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "cv2",
@@ -2996,7 +3477,8 @@ def main() -> int:
     # launches: the sum over the driven paths, each counted from zero
     launches = {name: quant_counts[name] + precise_counts[name]
                 + crop_counts[name] + serving_counts[name]
-                + modes_counts[name] for name in quant_counts}
+                + modes_counts[name] + parallel_counts[name]
+                for name in quant_counts}
     launches["blur_nms"] += fast_launches
     # requant runs on the im2col route only: its launches are those of
     # phase 7's im2col forward

@@ -879,3 +879,128 @@ def test_host_pyramid_on_the_card_matches_the_cpu(cuda_device):
     poses, _ = dets[0](frame)
     assert bn.blur_nms.launches == before + 1
     assert poses.shape[1:] == (18, 3)
+
+
+# ---------------------------------------------------------------------------
+# the (data, spatial) mesh on the card: two gloo ranks sharing card 0
+# ---------------------------------------------------------------------------
+
+
+def _mesh_rank_checks(rank, world):
+    """The ranks' half of the meshed card tests (this file runs as the
+    ranks' script): a 1x2 mesh's f32 and int8 maps and tables against
+    the mesh-less pair in the same process, its kernels' launches on slab
+    shapes, and a 2x1 train step against one process."""
+    import hashlib
+
+    from tpupose_torch.config import TrainConfig
+    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.models import CocoPoseNet
+    from tpupose_torch.parallel import make_mesh, replicate
+    from tpupose_torch.train import (TrainBatch, init_train_state,
+                                     make_train_step)
+
+    out = {}
+    cfg = InferenceConfig(img_size=96, heatmap_size=88, max_subsets=128,
+                          n_subset_limbs_thresh=2, subset_score_thresh=0.05)
+    frames = np.random.RandomState(2).randint(
+        0, 256, (2, 96, 128, 3)).astype(np.uint8)
+    mesh = make_mesh(1, 2, device="cuda")
+    ref = PoseDetector(cfg=cfg, device="cuda", seed=0)
+    assert calibrate_output_convs(ref, frames[0])
+    det = PoseDetector(cfg=cfg, seed=0, mesh=mesh)
+    det.model.load_state_dict(ref.model.state_dict())
+    replicate(det.model, mesh)
+    (paf, hm), _ = det.compute_maps_batch(frames)
+    (rpaf, rhm), _ = ref.compute_maps_batch(frames)
+    out["f32_rel"] = max(np.abs(paf - rpaf).max() / np.abs(rpaf).max(),
+                         np.abs(hm - rhm).max() / np.abs(rhm).max())
+    out["f32_tables"] = [len(p) for p, _ in det.detect_batch(frames)]
+    for d in (ref, det):
+        d.quantize([frames[0], frames[0][:, ::-1]])
+    before = (c7.conv7_s8.launches, cs.conv_s8.launches)
+    shapes = set(c7.conv7_s8.shapes)
+    (qpaf, qhm), _ = det.compute_maps_batch(frames)
+    out["launches"] = (c7.conv7_s8.launches - before[0],
+                       cs.conv_s8.launches - before[1])
+    out["new_conv7_shapes"] = sorted(set(c7.conv7_s8.shapes) - shapes)
+    (rqpaf, rqhm), _ = ref.compute_maps_batch(frames)
+    out["int8_equal"] = (np.array_equal(qpaf, rqpaf)
+                         and np.array_equal(qhm, rqhm))
+    got, want = det.detect_batch(frames), ref.detect_batch(frames)
+    out["int8_tables_equal"] = all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(got, want))
+    del det, ref
+    # a 2x1 train step at insize 64 against one process on the batch
+    tcfg = TrainConfig(insize=64, max_persons=1)
+    rng = np.random.RandomState(3)
+    poses = np.zeros((2, 1, 18, 3), np.float32)
+    poses[:, 0, :, :2] = rng.uniform(4, 60, (2, 18, 2))
+    poses[:, 0, :, 2] = 2
+    batch = TrainBatch(
+        torch.from_numpy(rng.randint(0, 256, (2, 64, 64, 3)).astype(
+            np.uint8)), torch.from_numpy(poses),
+        torch.zeros(2, 64, 64, dtype=torch.bool))
+    mesh = make_mesh(2, 1, device="cuda")
+    with float32_numerics():
+        state = init_train_state(CocoPoseNet(num_stages=2, seed=1), tcfg,
+                                 mesh=mesh)
+        state, m = make_train_step(tcfg, mesh=mesh)(state, batch)
+        ref = init_train_state(CocoPoseNet(num_stages=2, seed=1), tcfg)
+        ref, rm = make_train_step(tcfg)(ref, batch)
+    params = torch.cat([p.detach().reshape(-1)
+                        for p in state.model.parameters()])
+    rparams = torch.cat([p.detach().reshape(-1)
+                         for p in ref.model.parameters()])
+    out["loss"] = (float(m["loss"]), float(rm["loss"]))
+    out["param_err"] = (params - rparams).abs().max().item()
+    out["digest"] = hashlib.sha256(params.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from test_torch_parallel import run_ranks
+
+    return run_ranks(os.path.abspath(__file__), 2,
+                     str(tmp_path_factory.mktemp("cuda_mesh")))
+
+
+def test_meshed_f32_maps_on_the_card(mesh_ranks):
+    """1x2 slabs with halos on the card: maps within 1e-4 x max|ref| of
+    the mesh-less forward (cuDNN may take other algorithms on slabs)."""
+    for res in mesh_ranks:
+        assert res["f32_rel"] <= 1e-4
+        assert sum(res["f32_tables"]) >= 1
+
+
+def test_meshed_int8_kernels_on_slabs_are_bit_equal(mesh_ranks):
+    """conv7_s8 and conv_s8 launch on the slab shapes (stage rows + 3 of
+    halo) and the meshed int8 maps equal the mesh-less ones bit for bit."""
+    for res in mesh_ranks:
+        assert res["launches"] == (50, 30)      # one batched forward
+        assert res["new_conv7_shapes"]
+        assert res["int8_equal"] and res["int8_tables_equal"]
+
+
+def test_meshed_train_step_on_the_card(mesh_ranks):
+    """A 2x1 step (gloo, both ranks on card 0) against one process:
+    loss within rtol 1e-5; parameters within 0.5 x lr (Adam scales each
+    element's float noise by its own root mean square) and equal on both
+    ranks."""
+    assert len({res["digest"] for res in mesh_ranks}) == 1
+    for res in mesh_ranks:
+        got, want = res["loss"]
+        assert abs(got - want) <= 1e-5 * abs(want)
+        assert res["param_err"] <= 0.5 * 1e-4
+
+
+if __name__ == "__main__":
+    from test_torch_parallel import rank_main
+
+    rank_main(_mesh_rank_checks)

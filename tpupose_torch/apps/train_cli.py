@@ -12,8 +12,17 @@ Usage:
   python -m tpupose_torch.apps.train_cli --synthetic --test \\
       --device cpu --insize 64          # a small run on the CPU
 
-Without CUDA it raises unless given ``--device cpu``.  Data parallelism
-(``--n_data``, ``--n_spatial`` other than 1) is ROADMAP item 1.16.
+Without CUDA it raises unless given ``--device cpu``.
+
+On several cards, one process per card under ``torchrun`` (NCCL on CUDA,
+gloo on the CPU), the batch split over ``--n_data`` ranks and the image
+rows over ``--n_spatial`` (``tpupose_torch/parallel``):
+  torchrun --nproc_per_node 4 -m tpupose_torch.apps.train_cli \
+      --synthetic --test --n_data 4
+Only rank 0 writes the log, the snapshots and the npz exports; every rank
+loads a ``--resume`` snapshot.  A caller that has already initialised
+``torch.distributed`` (one process per rank, ``main(argv)`` in each) runs
+on its process group.
 """
 
 from __future__ import annotations
@@ -47,10 +56,10 @@ def parse_args(argv=None):
                         "(REQUIRED for facenet/handnet: no face/hand "
                         "keypoint dataset exists)")
     p.add_argument("--n_data", type=int, default=None,
-                   help="data-parallel size (only 1: ROADMAP 1.16)")
+                   help="data-parallel ranks (default: the largest count "
+                        "of the world's that divides both batch sizes)")
     p.add_argument("--n_spatial", type=int, default=1,
-                   help="spatial (image-height) split (only 1: ROADMAP "
-                        "1.16)")
+                   help="ranks splitting each image's rows")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (f32 params/loss)")
     p.add_argument("--insize", type=int, default=368,
@@ -61,6 +70,34 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (cpu only for small test runs)")
     return p.parse_args(argv)
+
+
+def _mesh(args, device):
+    """The (data, spatial) mesh of this process group (initialised from
+    ``torchrun``'s variables when they are set and it is not yet), or None
+    for one process."""
+    import torch.distributed as dist
+
+    from tpupose_torch.parallel import initialize_distributed, make_mesh
+
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+        initialize_distributed(device=device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_data = args.n_data
+    if n_data is None:
+        # the largest data-parallel degree dividing BOTH batch sizes (the
+        # validation loop splits its batches over the same mesh)
+        n_data = max(d for d in range(1, max(world // args.n_spatial, 1)
+                                      + 1)
+                     if args.batchsize % d == 0
+                     and args.valbatchsize % d == 0)
+    try:
+        mesh = make_mesh(n_data, args.n_spatial, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--n_data {n_data} --n_spatial {args.n_spatial}: "
+                         f"{e} (launch one process per rank with torchrun)")
+    return mesh if world > 1 else None
 
 
 def main(argv=None):
@@ -90,11 +127,11 @@ def main(argv=None):
             "pose-only too).  Pass --synthetic for a smoke run on "
             "generated labeled crops, or feed a labeled-crop dataset "
             "through tpupose_torch.train.make_train_step directly.")
-    if args.n_data not in (None, 1) or args.n_spatial != 1:
-        raise SystemExit(
-            "--n_data / --n_spatial other than 1 are not ported: data "
-            "parallelism over several GPUs is ROADMAP item 1.16")
     device = training_device(args.device)
+    mesh = _mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
+    writer = mesh is None or mesh.rank == 0
     cfg = TrainConfig(batch_size=args.batchsize, iterations=args.iteration,
                       insize=args.insize)
     iterations = min(args.iteration, 10) if args.test else args.iteration
@@ -113,12 +150,16 @@ def main(argv=None):
 
         print("Warm-starting VGG stem from", args.vgg)
         init_stem_from_caffe_vgg(model, args.vgg)
-    state = init_train_state(model, cfg, arch=args.arch, device=device)
-    step = make_train_step(cfg)
-    eval_step = make_eval_step(cfg)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    state = init_train_state(model, cfg, arch=args.arch, device=device,
+                             mesh=mesh)
+    step = make_train_step(cfg, mesh=mesh)
+    eval_step = make_eval_step(cfg, mesh=mesh)
+    if writer:
+        print(f"device: {device}"
+              + (f" ({torch.cuda.get_device_name(device)})"
+                 if device.type == "cuda" else ""))
+        if mesh is not None:
+            print(f"mesh: data={mesh.n_data} spatial={mesh.n_spatial}")
 
     if args.resume:
         path = (latest_checkpoint(args.out) if args.resume == "auto"
@@ -156,15 +197,17 @@ def main(argv=None):
     pin = device.type == "cuda"
     train_loader = BatchLoader(
         train_ds, args.batchsize, max_persons=max_persons,
-        num_workers=args.loaderjob, pin_memory=pin)
+        num_workers=args.loaderjob, pin_memory=pin, mesh=mesh)
 
-    logger = TrainLogger(args.out, log_interval=log_interval)
-    dump_run_params(args.out, vars(args))
+    logger = None
+    if writer:
+        logger = TrainLogger(args.out, log_interval=log_interval)
+        dump_run_params(args.out, vars(args))
 
     def run_validation(model):
         val_loader = BatchLoader(
             val_ds, args.valbatchsize, max_persons=max_persons,
-            shuffle=False, repeat=False, pin_memory=pin)
+            shuffle=False, repeat=False, pin_memory=pin, mesh=mesh)
         sums, n = {}, 0
         for batch in val_loader:
             m = eval_step(model, batch)
@@ -183,6 +226,8 @@ def main(argv=None):
     pending = []  # [(iteration, {k: device scalar})]
 
     def flush_metrics(extra_scalars=None, last_iter=None):
+        if not writer:
+            pending.clear()
         if not pending:
             return
         stacked = torch.stack([torch.stack([m[k] for k in metric_keys])
@@ -195,14 +240,14 @@ def main(argv=None):
             logger.observe(it_n, scalars, epoch=it_n // epoch_len)
         pending.clear()
 
-    progress = (None if args.test
+    progress = (None if args.test or not writer
                 else ProgressBar(iterations, update_interval=log_interval))
     # float32 convs without TF32 and deterministic cuDNN algorithms, as
     # the detectors run them; bf16 convs are bf16 either way
     with float32_numerics():
         for i in range(start, iterations):
             batch = next(it)
-            if i == start:
+            if i == start and writer:
                 dump_computation_graph(args.out, state.model, cfg, batch)
             state, metrics = step(state, batch)
             pending.append((i + 1, metrics))
@@ -210,16 +255,19 @@ def main(argv=None):
                 progress.update(i + 1)
             if (i + 1) % val_interval == 0:
                 extra = run_validation(state.model)
-                save_checkpoint(args.out, state)
-                export_model_npz(args.out, state)
+                if writer:
+                    save_checkpoint(args.out, state)
+                    export_model_npz(args.out, state)
                 flush_metrics(extra, last_iter=i + 1)
             elif (i + 1) % log_interval == 0 or i + 1 == iterations:
                 flush_metrics()
 
-    save_checkpoint(args.out, state)
-    export_model_npz(args.out, state, name=f"{args.arch}_final.npz")
+    if writer:
+        save_checkpoint(args.out, state)
+        export_model_npz(args.out, state, name=f"{args.arch}_final.npz")
     train_loader.close()
-    print("done:", state.step, "iterations")
+    if writer:
+        print("done:", state.step, "iterations")
 
 
 if __name__ == "__main__":

@@ -144,8 +144,14 @@ def _output_res_grid(in_size: int, out_size: int):
 
 
 def _subgrid_weights(height: int, width: int, out_hw: Tuple[int, int],
-                     device):
+                     device, out_rows: Optional[Tuple[int, int]] = None):
     ys, wh = _output_res_grid(height, out_hw[0])
+    if out_rows is not None:
+        # a slab of output rows: their rows of the weights, and the fine
+        # rows those read
+        wh = wh[out_rows[0]:out_rows[1]]
+        used = np.nonzero(wh.any(axis=0))[0]
+        ys, wh = ys[used], wh[:, used].copy()
     xs, ww = _output_res_grid(width, out_hw[1])
     grid = (torch.from_numpy(xs).to(device)[None, :],
             torch.from_numpy(ys).to(device)[:, None])
@@ -161,11 +167,14 @@ def _combine(maps: torch.Tensor, wh: torch.Tensor,
 
 
 def render_heatmaps_at(poses: torch.Tensor, height: int, width: int,
-                       out_hw: Tuple[int, int], sigma: float
+                       out_hw: Tuple[int, int], sigma: float,
+                       out_rows: Optional[Tuple[int, int]] = None
                        ) -> torch.Tensor:
     """``resize_chainer`` of ``render_heatmaps`` to ``out_hw`` without the
-    full-resolution maps (equal up to summation order, ~1e-7)."""
-    grid, wh, ww = _subgrid_weights(height, width, out_hw, poses.device)
+    full-resolution maps (equal up to summation order, ~1e-7); only the
+    output rows ``out_rows`` when given."""
+    grid, wh, ww = _subgrid_weights(height, width, out_hw, poses.device,
+                                    out_rows)
     return _combine(render_heatmaps(poses, height, width, sigma, grid=grid),
                     wh, ww)
 
@@ -183,10 +192,13 @@ def render_pafs_at(poses: torch.Tensor, height: int, width: int,
 
 def render_labels_at(poses: torch.Tensor, height: int, width: int,
                      out_hw: Tuple[int, int], heatmap_sigma: float,
-                     paf_sigma: float):
-    """(pafs, heatmaps) rendered directly at the stage output
-    resolution."""
-    grid, wh, ww = _subgrid_weights(height, width, out_hw, poses.device)
+                     paf_sigma: float,
+                     out_rows: Optional[Tuple[int, int]] = None):
+    """(pafs, heatmaps) rendered directly at the stage output resolution;
+    only the output rows ``[out_rows[0], out_rows[1])`` when given (a
+    spatial slab's: the full render's rows, up to summation order)."""
+    grid, wh, ww = _subgrid_weights(height, width, out_hw, poses.device,
+                                    out_rows)
     heatmaps = render_heatmaps(poses, height, width, heatmap_sigma,
                                grid=grid)
     pafs = render_pafs(poses, height, width, paf_sigma, grid=grid)

@@ -7,10 +7,18 @@ the host pipeline overlaps with the device's steps.  Batches are
 ``TrainBatch``es of CPU tensors, in pinned memory with ``pin_memory=True``
 (for a CUDA step's asynchronous copy).  Workers import this module and the
 dataset's, never touch CUDA, and send numpy samples back.
+
+With a ``mesh`` (``tpupose_torch/parallel``) every rank draws the same
+global order (the same seed) and loads only its data rank's part of each
+global batch, then cuts its spatial slab of the rows: the union over the
+ranks is the one-process batch.  A sample that fails to load is skipped
+within its rank's part, as the one-process loader skips it within the
+batch.
 """
 
 from __future__ import annotations
 
+import itertools
 import multiprocessing
 import queue
 import threading
@@ -65,15 +73,26 @@ class BatchLoader:
     num_workers=0 loads inline (SerialIterator parity); >0 uses a spawn
     process pool (MultiprocessIterator parity).  ``pin_memory`` puts each
     batch in page-locked memory (pass it for a CUDA step).  ``close()``
-    stops the feeder threads and shuts the pool down.
+    stops the feeder threads and shuts the pool down.  ``mesh``: yield
+    this rank's part of each global batch of ``batch_size`` (``sharded``
+    ``TrainBatch``es); ``n_data`` must divide ``batch_size``, and a final
+    partial batch that it does not divide is dropped.
     """
 
     def __init__(self, dataset, batch_size: int, max_persons: int = None,
                  shuffle: bool = True, repeat: bool = True,
                  num_workers: int = 0, prefetch: int = 2, seed: int = 0,
-                 pin_memory: bool = False, worker_timeout: float = 300.0):
+                 pin_memory: bool = False, worker_timeout: float = 300.0,
+                 mesh=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.mesh = mesh
+        self.rank_batch_size = batch_size
+        if mesh is not None:
+            if batch_size % mesh.n_data:
+                raise ValueError(f"batch size {batch_size} does not split "
+                                 f"over {mesh.n_data} data ranks")
+            self.rank_batch_size = batch_size // mesh.n_data
         if max_persons is None:
             # derive from the dataset's config: the dataset masks out
             # persons beyond ITS max_persons, so a mismatched loader cap
@@ -108,6 +127,24 @@ class BatchLoader:
             if not self.repeat:
                 return
 
+    def _rank_index_stream(self) -> Iterator[int]:
+        """The global order cut into global batches, and this data rank's
+        part of each; a final partial batch that ``n_data`` does not
+        divide is dropped."""
+        order = self._index_stream()
+        n_data, d = self.mesh.n_data, self.mesh.coords[0]
+        while True:
+            chunk = list(itertools.islice(order, self.batch_size))
+            if not chunk:
+                return
+            if len(chunk) % n_data:
+                print(f"[loader] dropping final partial batch of "
+                      f"{len(chunk)} (not divisible by data axis)",
+                      flush=True)
+                return
+            per = len(chunk) // n_data
+            yield from chunk[d * per:(d + 1) * per]
+
     def _assemble(self, samples):
         # local import: tpupose_torch.train.trainer imports
         # tpupose_torch.data.gt, so a module-level import here would be
@@ -122,13 +159,21 @@ class BatchLoader:
         poses = pad_poses([s[1] for s in samples], self.max_persons,
                           num_keypoints=np.shape(samples[0][1])[1])
         masks = np.stack([s[2] for s in samples])
+        if self.mesh is not None:
+            from tpupose_torch.parallel.mesh import slab_rows
+
+            first, stop = slab_rows(imgs.shape[1], self.mesh.n_spatial)[
+                self.mesh.coords[1]]
+            imgs = np.ascontiguousarray(imgs[:, first:stop])
+            masks = np.ascontiguousarray(masks[:, first:stop])
         tensors = [torch.from_numpy(a) for a in (imgs, poses, masks)]
         if self.pin_memory:
             tensors = [t.pin_memory() for t in tensors]
-        return TrainBatch(*tensors)
+        return TrainBatch(*tensors, sharded=self.mesh is not None)
 
     def _sample_stream(self):
-        idx = self._index_stream()
+        idx = (self._index_stream() if self.mesh is None
+               else self._rank_index_stream())
         if self._pool is not None:
             # Windowed dispatch instead of Pool.imap: imap's feeder thread
             # consumes the (infinite) index stream without backpressure and
@@ -193,7 +238,7 @@ class BatchLoader:
                 buf = []
                 for s in self._sample_stream():
                     buf.append(s)
-                    if len(buf) == self.batch_size:
+                    if len(buf) == self.rank_batch_size:
                         if not put(self._assemble(buf)):
                             return
                         buf = []

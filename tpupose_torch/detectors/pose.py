@@ -32,6 +32,17 @@ Each frame's work runs inside ``utils.profiling.annotate`` spans with the
 JAX package's program names (``pose_fast_HxW``, ``poseq_fast_HxW``,
 ``pose_scale_HxW``, ``pose_avg_postprocess_HxW``).
 
+``mesh=`` (``tpupose_torch/parallel``): ``detect_batch`` on a (data,
+spatial) mesh of ranks, each calling it with the same frames.  Each data
+rank resizes and uploads only its ``B / n_data`` frames; the spatial ranks
+split the network input's rows into slabs (``slab_rows``, whole blocks of
+8 rows) and run the net with halo rows (``parallel/spatial.py``; the int8
+forward through ``quant_apply(halo=...)``, its kernels unchanged on the
+slabs), then ``all_gather`` the last stage's rows and postprocess the
+whole maps; the results are gathered over ``data``, so every rank returns
+the full list.  A network input with fewer blocks of 8 rows than spatial
+ranks (a small pyramid scale) runs whole on every rank of its group.
+
 The traced programs that ``tpupose_torch/serving.py`` exports are built here
 (``_fast_fn``, ``_batch_fn``, ``_device_scale_fn``, ``_batch_scale_fn``,
 ``_avg_postprocess_fn``, ``_batch_avg_postprocess_fn``, the JAX package's
@@ -61,6 +72,9 @@ from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
                                       resize_cv2_cubic, resize_u8_cubic,
                                       resize_u8_linear)
+from tpupose_torch.parallel.mesh import (SLAB_MULTIPLE, Mesh, all_gather_list,
+                                         data_part, replicate)
+from tpupose_torch.parallel.spatial import SpatialSlabs, spatial_halos
 from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
                                  model_params, qtree_to_device, quant_apply,
                                  quantize, resolve_conv7_impl)
@@ -174,13 +188,17 @@ class PoseDetector:
                  cfg: InferenceConfig = INFERENCE,
                  device="cuda",
                  seed: int = 0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 mesh: Optional[Mesh] = None):
         """``params``: a Flax param tree (numpy leaves) to load;
         ``weights_file``: a Chainer ``.npz``; otherwise the model keeps its
         weights drawn from ``seed``.  ``compute_dtype``: ``torch.float32``
         or ``torch.bfloat16``, the network's compute dtype; the parameters
-        are stored in it."""
-        self.device = torch.device(device)
+        are stored in it.  ``mesh``: ``detect_batch`` runs on it (every
+        rank builds the detector; the device is the mesh's and the weights
+        are broadcast from rank 0)."""
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"PoseDetector(device={device!r}): CUDA is not available")
@@ -195,6 +213,10 @@ class PoseDetector:
             report = load_chainer_npz(self.model, weights_file)
             warn_on_load_report(report, weights_file, arch=arch)
         self.model = self.model.to(self.device, compute_dtype).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(self.model, mesh)
+        self._slabs_on = False   # inside a meshed detect_batch
         # set by quantize()
         self.quantized = False
         self.qtree = None
@@ -252,22 +274,57 @@ class PoseDetector:
         self.quantized = True
         self.conv7_impl = conv7_impl
         self._quant_min_side = min_side or 0
+        if self.mesh is not None:
+            _check_replicated(self.qtree, self.mesh)
 
     def _forward(self, x: torch.Tensor, weights=None):
         """Network forward on normalized (B, H, W, 3) frames: the int8 one
         once quantized (unless the short side is below ``min_side``), else
         the float model.  ``weights``: a traced program's weight inputs
-        (``program_weights``' layout), or None for the detector's own."""
-        if (self._quant_forward is not None
-                and min(x.shape[1], x.shape[2]) >= self._quant_min_side):
+        (``program_weights``' layout), or None for the detector's own.
+        Inside a meshed ``detect_batch``, ``_slab_forward``."""
+        if self._slabs_on:
+            return self._slab_forward(x)
+        return self._net(x, weights)
+
+    def _int8_for(self, x: torch.Tensor) -> bool:
+        """Whether the input ``x`` takes the int8 forward."""
+        return (self._quant_forward is not None
+                and min(x.shape[1], x.shape[2]) >= self._quant_min_side)
+
+    def _net(self, x: torch.Tensor, weights=None, halo=None,
+             int8: Optional[bool] = None):
+        """``_forward``'s body; ``halo``: the ``SpatialSlabs`` of which
+        ``x`` is this rank's slab; ``int8``: the route, by default
+        ``_int8_for(x)``."""
+        if self._int8_for(x) if int8 is None else int8:
             if weights is None:
-                return self._quant_forward(x)
+                return self._quant_forward(x, halo)
             return quant_apply(self.quant_static, weights, x,
                                self.conv7_impl)
         if weights is None:
-            return self.model(x)
+            if halo is None:
+                return self.model(x)
+            with spatial_halos(self.model, halo):
+                return self.model(x)
         return functional_call(
             self.model, weights["f32"] if self.quantized else weights, (x,))
+
+    def _slab_forward(self, x: torch.Tensor):
+        """The forward of a spatial mesh's rank on the whole normalized
+        input ``x``: its slab of rows through the net with halos, then the
+        last stage's maps of every slab (``all_gather`` over ``spatial``),
+        as a one-stage stack.  An input with fewer blocks of 8 rows than
+        spatial ranks runs whole on every rank (the int8 route is chosen
+        on the whole input's short side either way)."""
+        rows, n_spatial = x.shape[1], self.mesh.n_spatial
+        if rows // SLAB_MULTIPLE < n_spatial:
+            return self._net(x)
+        slabs = SpatialSlabs.for_height(self.mesh, rows)
+        first = sum(slabs.sizes[:slabs.index])
+        outs = self._net(x[:, first:first + slabs.sizes[slabs.index]],
+                         halo=slabs, int8=self._int8_for(x))
+        return tuple(slabs.gather(maps[-1], 1)[None] for maps in outs)
 
     def host_weights(self):
         """The weights as host data: a float32 detector's Flax param tree
@@ -639,11 +696,41 @@ class PoseDetector:
 
         One upload and one batched forward (per pyramid scale in precise
         mode); the postprocess runs per frame on the device, and one
-        device-to-host copy fetches every result."""
-        results, (scale_x, scale_y) = self._run(
-            np.asarray(imgs), self.precise, postprocess=True)
-        return [self._emit(r, scale_x, scale_y)
-                for r in results_to_host(results)]
+        device-to-host copy fetches every result.  On a mesh every rank
+        passes the same frames and gets the whole list; ``n_data`` must
+        divide ``B`` (else ``ValueError``)."""
+        results, (scale_x, scale_y) = self._run_batch(
+            np.asarray(imgs), postprocess=True)
+        out = [self._emit(r, scale_x, scale_y)
+               for r in results_to_host(results)]
+        if self.mesh is None:
+            return out
+        return all_gather_list(out, self.mesh.data_group)
+
+    def compute_maps_batch(self, imgs: np.ndarray):
+        """``detect_batch``'s maps: numpy float32 (B, 38, h, w) PAFs and
+        (B, 19, h, w) heatmaps, the postprocess's input, plus the map ->
+        original scale factors; on a mesh, the whole batch's on every
+        rank."""
+        (paf, hm), scale = self._run_batch(np.asarray(imgs),
+                                           postprocess=False)
+        frames = list(zip(paf.cpu().numpy(), hm.cpu().numpy()))
+        if self.mesh is not None:
+            frames = all_gather_list(frames, self.mesh.data_group)
+        return (np.stack([p for p, _ in frames]),
+                np.stack([h for _, h in frames])), scale
+
+    def _run_batch(self, imgs: np.ndarray, postprocess: bool):
+        """``_run`` of a batch; on a mesh, of this data rank's frames, the
+        net on this spatial rank's slabs."""
+        if self.mesh is None:
+            return self._run(imgs, self.precise, postprocess)
+        first, stop = data_part(len(imgs), self.mesh)
+        self._slabs_on = self.mesh.n_spatial > 1
+        try:
+            return self._run(imgs[first:stop], self.precise, postprocess)
+        finally:
+            self._slabs_on = False
 
     def _emit(self, result, scale_x: float, scale_y: float):
         poses, scores, self._warned_saturation = emit_result(
@@ -652,6 +739,37 @@ class PoseDetector:
 
     def __call__(self, orig_img: np.ndarray):
         return self.collect(self.submit(orig_img))
+
+
+def _check_replicated(qtree, mesh: Mesh) -> None:
+    """Raise unless every rank of ``mesh`` holds the same int8 tree: a
+    48-bit digest of its arrays, its minimum and maximum over the world
+    (``all_reduce``) compared."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    if not mesh.distributed:
+        return
+    digest = hashlib.sha256()
+    for path in sorted(qtree["qlayers"]):
+        spec = qtree["qlayers"][path]
+        for key in ("kernel_q", "mult"):
+            for a in spec[key]:
+                digest.update(np.ascontiguousarray(a).tobytes())
+        digest.update(np.ascontiguousarray(spec["bias_eff"]).tobytes())
+    for stage in sorted(qtree["part_scales"]):
+        for a in qtree["part_scales"][stage]:
+            digest.update(np.asarray(a, np.float64).tobytes())
+    value = float(int(digest.hexdigest()[:12], 16))
+    lo = torch.tensor([value], dtype=torch.float64, device=mesh.device)
+    hi = lo.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    if lo.item() != hi.item():
+        raise RuntimeError("quantize() on a mesh: the ranks' int8 trees "
+                           "differ (calibrate every rank on the same "
+                           "frames)")
 
 
 def _main(argv=None):

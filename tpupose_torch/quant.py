@@ -413,11 +413,18 @@ def _quant_sym(x_f32: torch.Tensor, a_to: torch.Tensor) -> torch.Tensor:
 
 
 def quant_apply(static: QuantStatic, qtree, x: torch.Tensor,
-                conv7_impl: str = "im2col"):
+                conv7_impl: str = "im2col", halo=None):
     """Quantized forward matching the f32 model's: normalized float32
     (B, H, W, 3) in, stacked per-stage float32 maps (S, B, h, w, C) out,
     ``(pafs, heatmaps)`` for two-branch nets, stacked heatmaps otherwise.
-    ``qtree`` is ``qtree_to_device``'s, on ``x``'s device."""
+    ``qtree`` is ``qtree_to_device``'s, on ``x``'s device.
+
+    ``halo``: a ``parallel.SpatialSlabs`` when ``x`` is a slab of a
+    spatial mesh's rows.  Each layer with ``k > 1`` then runs, unchanged,
+    on its input slabs extended by ``k // 2`` halo rows, and its output is
+    cropped to the slab's rows; the s8 sums are exact and the epilogue
+    elementwise, so the maps are the unsharded forward's rows, bit for
+    bit."""
     if conv7_impl not in CONV7_IMPLS:
         raise ValueError(f"unknown conv7_impl {conv7_impl!r}")
     ql = qtree["qlayers"]
@@ -425,7 +432,15 @@ def quant_apply(static: QuantStatic, qtree, x: torch.Tensor,
 
     def run(module, layer, parts):
         path = f"{module}/{layer}"
-        return _qconv(parts, ql[path], meta[path], conv7_impl)
+        pad = meta[path]["ksize"] // 2
+        if halo is None or pad == 0:
+            return _qconv(parts, ql[path], meta[path], conv7_impl)
+        rows = parts[0].shape[1]
+        ext = [halo.extend(p, 1, pad) for p in parts]
+        out = _qconv(tuple(e for e, _ in ext), ql[path], meta[path],
+                     conv7_impl)
+        # the kernels take contiguous tensors
+        return out.narrow(1, ext[0][1], rows).contiguous()
 
     # lossless input quantization: X = u8 - 128 (see ``quantize``)
     xq = torch.clamp(torch.round(x / static.input_a - static.input_z),
@@ -464,10 +479,10 @@ def quant_apply(static: QuantStatic, qtree, x: torch.Tensor,
 
 def make_quant_apply(static: QuantStatic, qtree, conv7_impl: str = "im2col"):
     """``x -> maps`` closure over the device tree, the signature of the f32
-    model's forward."""
+    model's forward (plus ``quant_apply``'s ``halo``)."""
 
-    def apply_fn(x):
-        return quant_apply(static, qtree, x, conv7_impl)
+    def apply_fn(x, halo=None):
+        return quant_apply(static, qtree, x, conv7_impl, halo)
 
     return apply_fn
 
