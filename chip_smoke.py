@@ -5,12 +5,12 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. Print the card (``nvidia-smi`` name and power limit) and build the four
+1. Print the card (``nvidia-smi`` name and power limit) and build the six
    CUDA kernels from ``tpupose_torch/csrc/`` (``blur_nms.cu``,
-   ``conv7_s8.cu``, ``conv_s8.cu``, ``requant.cu``), one ``nvcc`` per
-   source, in parallel, beside ``nvcc -Xptxas -v`` on ``blur_nms.cu``,
-   ``conv7_s8.cu`` and ``conv_s8.cu`` (registers, shared memory and spills
-   of each of their kernels, printed).
+   ``conv7_s8.cu``, ``conv_s8.cu``, ``requant.cu``, ``greedy_match.cu``,
+   ``group_fold.cu``), one ``nvcc`` per source, in parallel, beside
+   ``nvcc -Xptxas -v`` on all but ``requant.cu`` (registers, shared memory
+   and spills of each of their kernels, printed).
 2. Hold the blur+NMS kernel against its plain PyTorch version on the card at
    the fast path's map shape (18, 320, 432), the precise path's
    (18, 480, 640), a planted-peak map (18, 46, 62), a map smaller than the
@@ -24,10 +24,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. Drive the f32 fast path: ``PoseDetector`` with the full 6-stage
    CocoPoseNet at the default 368/320 sizes, seeded random weights
    calibrated so the maps carry peaks, three seeded 480x640 frames through
-   ``__call__`` and the same frames through ``detect_batch``.  Checks that
-   the kernel ran, that poses were found, that both entry points agree,
-   that the card's postprocess equals the CPU one on the same maps, and
-   that the card's maps agree with a CPU forward.
+   ``__call__`` and the same frames through ``detect_batch``.  Checks one
+   launch of blur_nms, greedy_match and group_fold per ``__call__`` and
+   per batch, that poses were found, that both entry points agree, that
+   the card's postprocess (the kernels) equals the CPU one (the plain
+   versions) on the same maps, and that the card's maps agree with a CPU
+   forward.  ``submit`` runs under ``torch.cuda.set_sync_debug_mode(
+   "error")``: a synchronising call before ``collect`` fails the phase
+   (so on the int8 fast path in phase 5, precise f32 and int8 in phase 6
+   and bf16 in phase 11).
+3b. The device postprocess (``run_device_postprocess``): greedy_match and
+   group_fold against their plain versions on the card, outputs equal, on
+   phase 3's frames at B = 1 and B = 3 and on the planted tables of
+   ``tests/postprocess_cases.py`` (exact ties, nothing valid, every score
+   ``-inf``, ``n_a = 0``, a full K = 32 limb; merges, two-subset fills,
+   three-subset matches, the non-spawning limbs, a saturated table with
+   spawns suppressed); both timed from CUDA-graph replays in turns with
+   their plain versions (the plain fold by the host clock: it reads its
+   trip count), beside their bounds and the fold's sequential steps; one
+   postprocess's device time and launches (``torch.profiler``) at B = 1
+   and 3.
 4. Hold the int8 kernels against their plain versions, bit-equal: conv7 at
    the four pyramid grids, with Mconv1's three groups and 128 -> 128, at
    batches of 2 and 3, at a grid that is a multiple of no tile and at a
@@ -44,7 +60,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 5. Drive the quantized fast path: ``quantize([f, f[:, ::-1]])`` of the
    calibrated detector, the three frames through ``__call__`` and
    ``detect_batch``.  Checks 50 conv7, 30 conv_s8 and no requant launches
-   per forward, poses, both entry points agreeing, the card's int8 head
+   per forward, one of each postprocess kernel per call, poses, both
+   entry points agreeing, the card's int8 head
    maps bit-equal to the CPU's int8 forward on the same tree, and the int8
    maps' fidelity to the f32 ones (rms, corr; fails below corr 0.9).
 6. Drive the precise pyramid (4 scales), f32 and quantized, on two frames
@@ -57,7 +74,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 After each driven path (3, 5, 6, 8, 9, 11 and phase 7's im2col forward),
 every kernel is held against its plain version, bit-equal, on seeded
 random inputs at every shape the path gave it (the wrappers' ``shapes``
-counters).
+counters; greedy_match and group_fold on planted tables of each shape).
 7. Print where the time goes: the fast path's split; the int8 forward on
    its kernel route (checked: 50 conv7, 30 conv_s8, no requant launches)
    against its im2col route (checked: 80 requant launches, one per int8
@@ -387,8 +404,8 @@ def _same_tables(a, b, score_atol):
             and np.allclose(sa, sb, rtol=0, atol=score_atol))
 
 
-def run_slice(bn, cfg, frames):
-    """Phase 3 on (B, H, W, 3) uint8 ``frames``; returns the kernel
+def run_slice(cfg, frames):
+    """Phase 3 on (B, H, W, 3) uint8 ``frames``; returns the kernels'
     launches counted over the main path and the calibrated detector."""
     import numpy as np
     import torch
@@ -396,7 +413,8 @@ def run_slice(bn, cfg, frames):
     from tpupose_torch.detectors.pose import (PoseDetector,
                                               float32_numerics,
                                               results_to_host)
-    from tpupose_torch.ops.grouping import group_keypoints
+    from tpupose_torch.ops.grouping import group_keypoints as plain_fold
+    from tpupose_torch.ops.library import group_keypoints
     from tpupose_torch.ops.paf import compute_connections
     from tpupose_torch.ops.peaks import find_peaks
     from tpupose_torch.ops.postprocess import postprocess_pose
@@ -412,6 +430,7 @@ def run_slice(bn, cfg, frames):
     torch.cuda.synchronize()
     print(f"detector init + calibration + warm-up: "
           f"{time.perf_counter() - t0:.2f} s")
+    check_no_sync("fast f32", det, frames[0])
 
     # --- the main path, counted ---
     torch.cuda.reset_peak_memory_stats()
@@ -422,16 +441,19 @@ def run_slice(bn, cfg, frames):
         singles.append(det(f))
         call_ms.append((time.perf_counter() - t0) * 1e3)
     batched = det.detect_batch(frames)
-    launches = bn.blur_nms.launches
+    counts = _read_counts()
     shapes = _read_shapes()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    print(f"main path: blur_nms launches={launches}, "
+    print(f"main path: launches {counts}, "
           f"poses per frame (__call__)={[len(p) for p, _ in singles]}, "
           f"(detect_batch)={[len(p) for p, _ in batched]}, "
           f"__call__ ms per frame={[round(t, 3) for t in call_ms]}, "
           f"peak device memory {peak_mib:.1f} MiB")
-    if launches < 2 * len(frames):
-        raise AssertionError(f"blur_nms kernel launched {launches} times")
+    # one launch of each postprocess kernel per call: 3 __call__s and one
+    # detect_batch
+    for name in POSTPROCESS_KERNELS:
+        if counts[name] != len(frames) + 1:
+            raise AssertionError(f"{name} launched {counts[name]} times")
     if sum(len(p) for p, _ in singles) < 1:
         raise AssertionError("no pose found in any frame")
     for i, (a, b) in enumerate(zip(singles, batched)):
@@ -447,6 +469,8 @@ def run_slice(bn, cfg, frames):
     (paf, hm), _ = det.compute_maps(frames[0])
     map_w = paf.shape[-1]
     with torch.no_grad():
+        # the card's postprocess runs the kernels, the CPU's the plain
+        # versions
         on_card = results_to_host([postprocess_pose(paf, hm, map_w, cfg)])[0]
         on_cpu = results_to_host([postprocess_pose(
             paf.cpu(), hm.cpu(), map_w, cfg)])[0]
@@ -502,6 +526,8 @@ def run_slice(bn, cfg, frames):
                 paf, peaks, float(map_w), cfg, LIMBS_FROM, LIMBS_TO), 5),
             "grouping_fold_ms": _host_ms(
                 lambda: group_keypoints(conns, peaks, cfg), 5),
+            "grouping_fold_plain_ms": _host_ms(
+                lambda: plain_fold(conns, peaks, cfg), 5),
             "call_ms": _host_ms(lambda: det(frames[0]), 5),
             "detect_batch3_ms": _host_ms(lambda: det.detect_batch(frames),
                                          3),
@@ -510,7 +536,239 @@ def run_slice(bn, cfg, frames):
           f"input, {map_hw} maps, "
           f"{n_conn} valid connections): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}))
-    return launches, det
+    return counts, det
+
+
+def check_no_sync(label, det, frame):
+    """``det.submit(frame)`` under ``torch.cuda.set_sync_debug_mode(
+    "error")``: any synchronising call before ``collect`` (a blocking copy,
+    ``.item()``, ``.tolist()``, a synchronize) raises.  The collected table
+    must equal ``__call__``'s."""
+    import numpy as np
+    import torch
+
+    ref = det(frame)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = det.submit(frame)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = det.collect(pending)
+    if not all(np.array_equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"{label}: collect(submit) != __call__")
+    print(f"{label}: submit queued everything, no host sync "
+          f"(set_sync_debug_mode('error')); collect equals __call__ "
+          f"({len(got[0])} poses)")
+
+
+def _cases():
+    """``tests/postprocess_cases.py``, the planted matcher and fold tables
+    (loaded by path: another ``tests`` package may be importable)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "postprocess_cases.py")
+    spec = importlib.util.spec_from_file_location("postprocess_cases", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _match_args(rng, name, lead, k):
+    """``tests/postprocess_cases.py::match_tables`` on the card."""
+    import torch
+
+    return [torch.from_numpy(a).cuda()
+            for a in _cases().match_tables(rng, name, tuple(lead), k)]
+
+
+def _fold_args(rng, lead, k, n_limbs):
+    """``tests/postprocess_cases.py::fold_tables`` on the card: (a_slot,
+    b_slot, conn score, valid, peak scores)."""
+    import torch
+
+    a, b, s, v, p = (torch.from_numpy(x).cuda()
+                     for x in _cases().fold_tables(rng, tuple(lead), k))
+    return a[..., :n_limbs, :], b[..., :n_limbs, :], s[..., :n_limbs, :], \
+        v[..., :n_limbs, :], p
+
+
+def greedy_match_bound(rows, k, scans):
+    """greedy_match's bound: scores and validity read once, the counts
+    read and the four outputs written once; one comparison per candidate
+    per scan this run's data needed (``scans``: each row's accepted
+    connections plus the scan that stopped it, summed), at the non-FMA
+    rate."""
+    n_bytes = rows * k * k * 5 + rows * 16 + rows * k * 21
+    return _bound(n_bytes, scans * k * k, F32_NONFMA_OPS_PER_S)
+
+
+def group_fold_bound(frames, n_limbs, k, s, steps):
+    """group_fold's bound: the connections (two int64 slots, a float32
+    score and a flag each) and the peak scores read once, the table (18
+    int64 slots, score, count and flag a row) and the suppressed counts
+    written once; per valid connection (``steps``, summed over frames) two
+    comparisons per subset row, at the non-FMA rate."""
+    from tpupose_torch.config import NUM_JOINTS
+
+    n_bytes = frames * (n_limbs * k * 21 + NUM_JOINTS * k * 4
+                        + s * (NUM_JOINTS * 8 + 9) + 8)
+    return _bound(n_bytes, steps * s * 2, F32_NONFMA_OPS_PER_S)
+
+
+def _scans(n_a, n_b, valid, k):
+    """The matcher's scans over the candidates: per row its accepted
+    connections, plus one that found none when it stopped early."""
+    import torch
+
+    taken = valid.sum(dim=-1)
+    cap = torch.clamp(torch.minimum(n_a, n_b), max=k)
+    return int((taken + (taken < cap).long()).sum())
+
+
+def run_device_postprocess(det, cfg, frames):
+    """Phase 3b: greedy_match and group_fold against their plain versions
+    on the card, exactly, at phase 3's frames (B = 1 and 3) and on the
+    planted tables of ``tests/postprocess_cases.py``; their times from
+    CUDA-graph replays in turns with the plain versions, beside their
+    bounds; one postprocess's launches (``torch.profiler``).  Returns the
+    two kernels' records: (max_abs_err, ms, plain_ms, (bound_ms,
+    bound_by))."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.config import LIMBS_FROM, LIMBS_TO, NUM_LIMBS
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops import group_fold as gf
+    from tpupose_torch.ops import paf
+    from tpupose_torch.ops.grouping import fold_connections
+    from tpupose_torch.ops.peaks import find_peaks
+    from tpupose_torch.ops.postprocess import postprocess_pose
+
+    t_phase = time.perf_counter()
+    cases_module = _cases()
+    FOLD_CASE_NAMES, FOLD_CASES, MATCH_CASES, fold_steps = (
+        cases_module.FOLD_CASE_NAMES, cases_module.FOLD_CASES,
+        cases_module.MATCH_CASES, cases_module.fold_steps)
+    thresh = (cfg.n_subset_limbs_thresh, cfg.subset_score_thresh)
+    s_cap, k = cfg.max_subsets, cfg.max_peaks_per_joint
+
+    def same(label, got, ref):
+        if not all(g.dtype == r.dtype and torch.equal(g, r)
+                   for g, r in zip(got, ref)):
+            raise AssertionError(f"{label}: kernel != plain version")
+
+    # --- phase 3's frames, B = 1 and B = 3 ---
+    (paf_b, hm_b), _ = det._run(frames, False, postprocess=False)
+    map_hw, img_len = tuple(paf_b.shape[-2:]), float(paf_b.shape[-1])
+    inputs = {}
+    with torch.no_grad():
+        for b in (1, 3):
+            rows = paf_b[:b].reshape(b, NUM_LIMBS, 2, -1).transpose(-1, -2)
+            peaks = find_peaks(hm_b[:b, :-1], cfg.gaussian_sigma,
+                               cfg.heatmap_peak_thresh, k)
+            m_args = paf.limb_candidates(rows, map_hw, peaks, img_len, cfg,
+                                         LIMBS_FROM, LIMBS_TO)
+            conns = gm.greedy_match(*m_args)
+            same(f"greedy_match at B = {b}", conns,
+                 paf.greedy_match(*m_args))
+            f_args = (*conns, peaks.score)
+            folded = gf.group_fold(*f_args, s_cap, *thresh)
+            same(f"group_fold at B = {b}", folded,
+                 fold_connections(*f_args, s_cap, *thresh))
+            inputs[b] = (m_args, f_args)
+            steps = [int(n) for n in conns[3].sum(dim=(-2, -1))]
+            print(f"device postprocess on phase 3's frames, B = {b}: "
+                  f"greedy_match {tuple(m_args[0].shape)} and group_fold "
+                  f"(S = {s_cap}) equal to their plain versions; valid "
+                  f"connections per frame {steps}, persons "
+                  f"{[int(v) for v in folded[3].sum(dim=-1)]}")
+
+    # --- planted tables ---
+    rng = np.random.RandomState(7)
+    for name in MATCH_CASES:
+        kk = 32 if name == "full_limb" else 8
+        for b in (1, 3):
+            args = _match_args(rng, name, (b, NUM_LIMBS), kk)
+            same(f"greedy_match {name} B = {b}", gm.greedy_match(*args),
+                 paf.greedy_match(*args))
+    cases, suppressed = {}, 0
+    for seed, cap in FOLD_CASES:
+        for b in (1, 3):
+            args = _fold_args(np.random.RandomState(seed), (b,), 4, NUM_LIMBS)
+            got = gf.group_fold(*args, cap, 2, 0.3)
+            same(f"group_fold seed {seed} S {cap} B = {b}", got,
+                 fold_connections(*args, cap, 2, 0.3))
+            suppressed += int(got[4].sum())
+            if b == 3:
+                a, bb, _, v, _ = (x.cpu().numpy() for x in args)
+                for f in range(b):
+                    for c in fold_steps(a[f], bb[f], v[f]):
+                        cases[FOLD_CASE_NAMES[c]] = cases.get(
+                            FOLD_CASE_NAMES[c], 0) + 1
+    if suppressed == 0 or len(cases) != len(FOLD_CASE_NAMES):
+        raise AssertionError(f"planted fold cases {cases}, suppressed "
+                             f"{suppressed}")
+    torch.cuda.synchronize()
+    print(f"planted tables: greedy_match {list(MATCH_CASES)} at B = 1 and "
+          f"3 (K = 8, 32 for the full limb) and group_fold over "
+          f"{len(FOLD_CASES)} tables (connections by case {cases}, "
+          f"{suppressed} spawns suppressed at S = 4) equal to their plain "
+          f"versions")
+
+    # --- times, in turns with the plain versions ---
+    numbers = {}
+    for b in (1, 3):
+        m_args, f_args = inputs[b]
+        fns = {
+            "greedy_match": lambda: gm.greedy_match(*m_args),
+            "greedy_match_plain": lambda: paf.greedy_match(*m_args),
+            "group_fold": lambda: gf.group_fold(*f_args, s_cap, *thresh),
+        }
+        t = {name: [] for name in (*fns, "group_fold_plain")}
+        for name in (*fns, *reversed(list(fns))):
+            t[name].append(_graph_ms(fns[name], 20))
+        # the plain fold reads its trip count to the host: not capturable
+        for _ in range(2):
+            t["group_fold_plain"].append(_host_ms(
+                lambda: fold_connections(*f_args, s_cap, *thresh), 5))
+        t = {name: statistics.mean(v) for name, v in t.items()}
+        score, valid, n_a, n_b = m_args
+        scans = _scans(n_a, n_b, inputs[b][1][3], k)
+        steps = int(f_args[3].sum())
+        m_bound = greedy_match_bound(b * NUM_LIMBS, k, scans)
+        f_bound = group_fold_bound(b, NUM_LIMBS, k, s_cap, steps)
+        numbers[b] = dict(t, greedy_match_bound=m_bound,
+                          group_fold_bound=f_bound, scans=scans,
+                          fold_steps=steps)
+        print(f"device postprocess times at B = {b} (ms; kernels and the "
+              f"plain matcher from CUDA-graph replays of 20 calls, in "
+              f"turns; the plain fold by the host clock, median of 5, it "
+              f"reads its trip count): " + json.dumps(t)
+              + f"; greedy_match bound {m_bound} ({scans} scans of "
+              f"{k * k} candidates), group_fold bound {f_bound} ({steps} "
+              f"sequential steps, {t['group_fold'] / max(steps, 1)!r} ms "
+              f"a step)")
+
+    # --- one postprocess's launches ---
+    for b in (1, 3):
+        with torch.no_grad():
+            ops = _profile_forward(lambda _: postprocess_pose(
+                paf_b[:b], hm_b[:b], img_len, cfg), None)
+        print(f"one postprocess of {b} frame(s) ({tuple(hm_b.shape[-2:])} "
+              f"maps): {sum(v[0] for v in ops.values())!r} ms of device "
+              f"time in {sum(v[1] for v in ops.values())!r} launches "
+              f"(torch.profiler, mean of 3); greedy_match "
+              f"{_kernel_ms(ops, 'greedy_match_kernel')!r} ms, group_fold "
+              f"{_kernel_ms(ops, 'group_fold_kernel')!r} ms")
+    print(f"phase 3b: {time.perf_counter() - t_phase:.2f} s")
+    # the records: one frame, as __call__ runs them (equal outputs, so no
+    # error)
+    one = numbers[1]
+    return {name: (0.0, one[name], one[f"{name}_plain"],
+                   one[f"{name}_bound"])
+            for name in ("greedy_match", "group_fold")}
 
 
 def _round_robin_ms(fns, iters: int, timer=None):
@@ -641,6 +899,8 @@ def _requant_case(gen, shape, groups):
 
 
 PYRAMID_GRIDS = ((23, 31), (46, 62), (69, 92), (92, 123))
+# the kernels every pose postprocess launches once (per frame or batch)
+POSTPROCESS_KERNELS = ("blur_nms", "greedy_match", "group_fold")
 MCONV1_CHANNELS = (38, 19, 128)
 
 
@@ -654,7 +914,11 @@ def check_path_shapes(label, cfg, shapes):
     from tpupose_torch.ops import blur_nms as bn
     from tpupose_torch.ops import conv7 as c7
     from tpupose_torch.ops import conv_s8 as cs
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops import group_fold as gf
+    from tpupose_torch.ops import paf
     from tpupose_torch.ops import requant as rq
+    from tpupose_torch.ops.grouping import fold_connections
 
     rng = np.random.RandomState(1)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -679,6 +943,19 @@ def check_path_shapes(label, cfg, shapes):
         if not torch.equal(got, ref):
             raise AssertionError(f"{label}: conv_s8 disagrees at "
                                  f"{(b, h, w)} {c} -> {o}, {k}x{k}")
+    for *lead, k in sorted(shapes.get("greedy_match", {})):
+        args = _match_args(rng, "ties", lead, k)
+        if not all(torch.equal(g, r) for g, r in zip(
+                gm.greedy_match(*args), paf.greedy_match(*args))):
+            raise AssertionError(f"{label}: greedy_match disagrees at "
+                                 f"{(*lead, k)}")
+    for *lead, n_limbs, k, s in sorted(shapes.get("group_fold", {})):
+        args = _fold_args(rng, lead, k, n_limbs)
+        if not all(torch.equal(g, r) for g, r in zip(
+                gf.group_fold(*args, s, 2, 0.3),
+                fold_connections(*args, s, 2, 0.3))):
+            raise AssertionError(f"{label}: group_fold disagrees at "
+                                 f"{(*lead, n_limbs, k)} S {s}")
     for shape, groups, relu, lo in sorted(shapes["requant_epilogue"]):
         accs, mults, bias = _requant_case(gen, shape, groups)
         got = rq.requant_epilogue(accs, mults, bias, relu, lo)
@@ -691,7 +968,9 @@ def check_path_shapes(label, cfg, shapes):
           f"shape the path gave it: blur_nms "
           f"{sorted(shapes['blur_nms'])}, conv7_s8 "
           f"{len(shapes['conv7_s8'])} shapes, conv_s8 "
-          f"{len(shapes['conv_s8'])} shapes, requant_epilogue "
+          f"{len(shapes['conv_s8'])} shapes, greedy_match "
+          f"{sorted(shapes.get('greedy_match', {}))}, group_fold "
+          f"{sorted(shapes.get('group_fold', {}))}, requant_epilogue "
           f"{len(shapes['requant_epilogue'])} shapes (largest "
           f"{max(shapes['requant_epilogue'], default=None, key=_numel)})")
 
@@ -914,10 +1193,13 @@ def _wrappers():
     from tpupose_torch.ops import blur_nms as bn
     from tpupose_torch.ops import conv7 as c7
     from tpupose_torch.ops import conv_s8 as cs
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops import group_fold as gf
     from tpupose_torch.ops import requant as rq
 
     return {"blur_nms": bn.blur_nms, "conv7_s8": c7.conv7_s8,
-            "conv_s8": cs.conv_s8, "requant_epilogue": rq.requant_epilogue}
+            "conv_s8": cs.conv_s8, "requant_epilogue": rq.requant_epilogue,
+            "greedy_match": gm.greedy_match, "group_fold": gf.group_fold}
 
 
 def _reset_counts():
@@ -963,6 +1245,7 @@ def run_quantized(f32_det, cfg, frames):
     torch.cuda.synchronize()
     print(f"quantize (calibration on 2 frames) + warm-up: "
           f"{time.perf_counter() - t0:.2f} s")
+    check_no_sync("fast int8", det, frames[0])
 
     # --- the main path, counted ---
     torch.cuda.reset_peak_memory_stats()
@@ -982,7 +1265,7 @@ def run_quantized(f32_det, cfg, frames):
     if (counts["conv7_s8"] != 50 * forwards
             or counts["conv_s8"] != 30 * forwards
             or counts["requant_epilogue"] != 0
-            or counts["blur_nms"] < 2 * len(frames)):
+            or any(counts[k] != forwards for k in POSTPROCESS_KERNELS)):
         raise AssertionError(f"quantized fast path launches {counts}")
     if sum(len(p) for p, _ in singles) < 1:
         raise AssertionError("quantized: no pose found in any frame")
@@ -1055,6 +1338,7 @@ def run_precise(f32_det, cfg, frames):
         torch.cuda.synchronize()
         print(f"precise {label}: init + calibration + warm-up "
               f"{time.perf_counter() - t0:.2f} s")
+        check_no_sync(f"precise {label}", det, frames[0])
 
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
@@ -1819,7 +2103,7 @@ def _serve_live(label, served, det, cfg, frames, other, numbers, per_call):
     if not all(_same_tables(g, r, 0.0) for g, r in zip(replies, want)):
         raise AssertionError(f"{label} server: concurrent replies != "
                              f"sequential")
-    grown = {k: counts[k] for k in ("conv7_s8", "conv_s8", "blur_nms")}
+    grown = {k: counts[k] for k in per_call}
     expect = {k: v * len(frames) for k, v in per_call.items()}
     if grown != expect:
         raise AssertionError(f"{label} server: {len(frames)} requests "
@@ -1999,8 +2283,9 @@ def run_serving(f32_det, qdet, pdet, face, cfg, frames, smi):
     os.makedirs(_cuda_build.BUILD_DIR, exist_ok=True)
     root = tempfile.mkdtemp(prefix="bundles-", dir=_cuda_build.BUILD_DIR)
     served = _Served()
-    int8_call = {"conv7_s8": 50, "conv_s8": 30, "blur_nms": 1}
-    f32_call = {"conv7_s8": 0, "conv_s8": 0, "blur_nms": 1}
+    post = dict.fromkeys(POSTPROCESS_KERNELS, 1)
+    int8_call = {"conv7_s8": 50, "conv_s8": 30, **post}
+    f32_call = {"conv7_s8": 0, "conv_s8": 0, **post}
     try:
         add(_serve_live("f32", served, f32_det, cfg, frames, other, numbers,
                         f32_call))
@@ -2012,7 +2297,7 @@ def run_serving(f32_det, qdet, pdet, face, cfg, frames, smi):
                 ("f32", f32_det, f32_call, True),
                 ("int8", qdet, int8_call, True),
                 ("precise_int8", pdet, {"conv7_s8": 200, "conv_s8": 120,
-                                        "blur_nms": 1}, False)):
+                                        **post}, False)):
             add(_serve_bundle(label, served, det, os.path.join(root, label),
                               frames, numbers, per_call, timed))
             served.close()
@@ -2066,6 +2351,7 @@ def _bf16_modes(f32_det, p32, cfg, frames, root, add):
     pdet.model.load_state_dict(p32.model.state_dict())
     if {p.dtype for p in det.model.parameters()} != {bf16}:
         raise AssertionError("bf16 detector: parameters not stored in bf16")
+    check_no_sync("fast bf16", det, frames[0])
     for label, got_det, ref_det in (("fast", det, f32_det),
                                     ("precise", pdet, p32)):
         (paf, hm), _ = got_det.compute_maps(frames[0])
@@ -2099,7 +2385,8 @@ def _bf16_modes(f32_det, p32, cfg, frames, root, add):
     shapes = _read_shapes()
     add(counts)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    if counts["blur_nms"] != 2 * len(frames) + 1 or counts["conv7_s8"]:
+    if (any(counts[k] != len(frames) + 2 for k in POSTPROCESS_KERNELS)
+            or counts["conv7_s8"]):
         raise AssertionError(f"bf16 path launches {counts}")
     # cuDNN takes other algorithms at B = 3 than at B = 1, and in bf16 the
     # other roundings move map values by up to a few 1e-2 (f32: ~1e-5), so
@@ -2187,7 +2474,8 @@ def _plateau_maps(rng, j, h, w):
 def _conv_mode(f32_det, cfg, frames, add):
     """Phase 11, conv NMS: ``find_peaks(mode="conv")`` on the card against
     the CPU at the fast path's map shape, and ``__call__``'s tables against
-    the CPU's postprocess of the card's maps.  No kernel runs."""
+    the CPU's postprocess of the card's maps.  No blur_nms or conv kernel
+    runs; greedy_match and group_fold run once a frame."""
     import dataclasses
 
     import numpy as np
@@ -2231,7 +2519,8 @@ def _conv_mode(f32_det, cfg, frames, add):
     torch.cuda.synchronize()
     counts = _read_counts()
     add(counts)
-    if any(counts.values()):
+    post = {"greedy_match": len(frames), "group_fold": len(frames)}
+    if {k: v for k, v in counts.items() if v} != post:
         raise AssertionError(f"conv mode launched kernels: {counts}")
     (paf, hm), (sx, sy) = det.compute_maps(frames[0])
     with torch.no_grad():
@@ -2388,12 +2677,13 @@ def _evaluate(f32_det, qdet, frames, add):
     samples = _EvalSamples(f32_det, frames)
     n_gt = sum(len(g) for g in samples.gts)
     shapes = {}
+    post = dict.fromkeys(POSTPROCESS_KERNELS, 1)
     for label, det, per_frame in (
-            ("f32", f32_det, {"blur_nms": 1, "conv7_s8": 0, "conv_s8": 0}),
-            ("int8", qdet, {"blur_nms": 1, "conv7_s8": 50, "conv_s8": 30}),
+            ("f32", f32_det, {"conv7_s8": 0, "conv_s8": 0, **post}),
+            ("int8", qdet, {"conv7_s8": 50, "conv_s8": 30, **post}),
             ("bucketed", BucketedPoseDetector(
                 f32_det, canvases=canvas_palette(640)),
-             {"blur_nms": 1, "conv7_s8": 0, "conv_s8": 0})):
+             {"conv7_s8": 0, "conv_s8": 0, **post})):
         _reset_counts()
         runs = {d: evaluate_detector(det, samples, verbose=False,
                                      pipeline_depth=d) for d in (2, 0)}
@@ -3427,9 +3717,10 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     reports = {name: _start_resource_report(name)
-               for name in ("blur_nms", "conv7_s8", "conv_s8")}
+               for name in ("blur_nms", "conv7_s8", "conv_s8",
+                            "greedy_match", "group_fold")}
     libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "conv_s8",
-                                  "requant"])
+                                  "requant", "greedy_match", "group_fold"])
     print(f"built {sorted(libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
@@ -3445,7 +3736,8 @@ def main() -> int:
 
     frames = np.random.RandomState(0).randint(
         0, 256, (3, 480, 640, 3)).astype(np.uint8)
-    fast_launches, f32_det = run_slice(bn, cfg, frames)
+    fast_counts, f32_det = run_slice(cfg, frames)
+    post_records = run_device_postprocess(f32_det, cfg, frames)
     int8_kernels, conv7_grids = check_int8_kernels()
     int8_kernels["conv_s8"], conv_s8_layers = check_conv_s8()
     quant_counts, qdet, x = run_quantized(f32_det, cfg, frames)
@@ -3479,7 +3771,8 @@ def main() -> int:
                 + crop_counts[name] + serving_counts[name]
                 + modes_counts[name] + parallel_counts[name]
                 for name in quant_counts}
-    launches["blur_nms"] += fast_launches
+    for name, n in fast_counts.items():
+        launches[name] += n
     # requant runs on the im2col route only: its launches are those of
     # phase 7's im2col forward
     launches["requant_epilogue"] = im2col_counts["requant_epilogue"]
@@ -3495,6 +3788,12 @@ def main() -> int:
          int8_kernels["requant_epilogue"]),
         ("conv_s8", "tpupose_torch/csrc/conv_s8.cu",
          "tpupose/ops/pallas/requant.py:74", int8_kernels["conv_s8"]),
+        # the counterparts of the JAX package's device loops (XLA
+        # while_loops, not Pallas kernels)
+        ("greedy_match", "tpupose_torch/csrc/greedy_match.cu",
+         "tpupose/ops/paf.py:102", post_records["greedy_match"]),
+        ("group_fold", "tpupose_torch/csrc/group_fold.cu",
+         "tpupose/ops/grouping.py:82", post_records["group_fold"]),
     ]
     fusions = {"conv_s8": "requant_epilogue fused into an s8 implicit GEMM "
                           "for the 1x1 and 3x3 int8 layers (kernel route)",

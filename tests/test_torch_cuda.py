@@ -23,6 +23,9 @@ from tpupose_torch.ops import conv_s8 as cs
 from tpupose_torch.ops import requant as rq
 from tpupose_torch.utils.calibrate import calibrate_output_convs
 
+from postprocess_cases import (FOLD_CASES, MATCH_CASES, fold_tables,
+                               match_tables)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -998,6 +1001,101 @@ def test_meshed_train_step_on_the_card(mesh_ranks):
         got, want = res["loss"]
         assert abs(got - want) <= 1e-5 * abs(want)
         assert res["param_err"] <= 0.5 * 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the device postprocess: greedy_match and group_fold kernels, no host sync
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("frames", [1, 3])
+@pytest.mark.parametrize("name", MATCH_CASES)
+def test_greedy_match_kernel_equals_plain(cuda_device, name, frames):
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops.paf import greedy_match as plain
+
+    k = 32 if name == "full_limb" else 8
+    args = [torch.from_numpy(x).to(cuda_device) for x in match_tables(
+        np.random.RandomState(6), name, (frames, 19), k)]
+    before = gm.greedy_match.launches
+    got = gm.greedy_match(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert gm.greedy_match.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("frames", [1, 3])
+@pytest.mark.parametrize("seed,cap", FOLD_CASES)
+def test_group_fold_kernel_equals_plain(cuda_device, seed, cap, frames):
+    from tpupose_torch.ops import group_fold as gf
+    from tpupose_torch.ops.grouping import fold_connections
+
+    args = [torch.from_numpy(x).to(cuda_device) for x in fold_tables(
+        np.random.RandomState(seed), (frames,))]
+    before = gf.group_fold.launches
+    got = gf.group_fold(*args, cap, 2, 0.3)
+    ref = fold_connections(*args, cap, 2, 0.3)
+    torch.cuda.synchronize()
+    assert gf.group_fold.launches == before + 1
+    for g, r, field in zip(got, ref, ref._fields):
+        assert g.dtype == r.dtype and torch.equal(g, r), field
+
+
+@pytest.fixture(scope="module")
+def small_detector():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = InferenceConfig(img_size=96, heatmap_size=88, max_subsets=128,
+                          n_subset_limbs_thresh=2, subset_score_thresh=0.05)
+    frames = np.random.RandomState(0).randint(0, 256, (3, 96, 128, 3)
+                                              ).astype(np.uint8)
+    det = PoseDetector(cfg=cfg, device="cuda", seed=0)
+    assert calibrate_output_convs(det, frames[0])
+    return det, frames
+
+
+def test_submit_does_not_sync_the_host(small_detector):
+    """Everything ``submit`` does is queued: under
+    ``set_sync_debug_mode("error")`` a synchronising call raises; the
+    collected table equals ``__call__``'s."""
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops import group_fold as gf
+
+    det, frames = small_detector
+    ref = det(frames[0])
+    before = (gm.greedy_match.launches, gf.group_fold.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = det.submit(frames[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (gm.greedy_match.launches, gf.group_fold.launches) == (
+        before[0] + 1, before[1] + 1)
+    poses, scores = det.collect(pending)
+    np.testing.assert_array_equal(poses, ref[0])
+    np.testing.assert_array_equal(scores, ref[1])
+
+
+def test_detect_batch_equals_three_calls(small_detector):
+    """One batched postprocess (one launch of each kernel) gives each
+    frame's ``__call__`` table; scores within 1e-4 (cuDNN may pick other
+    algorithms at B = 3)."""
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops import group_fold as gf
+
+    det, frames = small_detector
+    singles = [det(f) for f in frames]
+    before = (gm.greedy_match.launches, gf.group_fold.launches)
+    batched = det.detect_batch(frames)
+    assert (gm.greedy_match.launches, gf.group_fold.launches) == (
+        before[0] + 1, before[1] + 1)
+    for (p, s), (bp, bs) in zip(singles, batched):
+        np.testing.assert_array_equal(bp, p)
+        np.testing.assert_allclose(bs, s, rtol=0, atol=1e-4)
+    assert sum(len(p) for p, _ in singles) >= 1
 
 
 if __name__ == "__main__":

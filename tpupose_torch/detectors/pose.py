@@ -8,6 +8,10 @@ Fast path, per frame: a host resize of the uint8 frame (numpy emulation of
 cv2's INTER_LINEAR, so no cv2 is needed), ``/255 - 0.5``, CocoPoseNet, an
 align-corners resize of the last stage's maps, then the whole postprocess
 on the detector's device, and one device-to-host copy of the result.
+Every entry point runs one batched postprocess per program (a frame axis
+in front of the maps, as the JAX package's ``vmap``); on the card it
+reads nothing back to the host, so ``submit`` only queues work and the
+one synchronising call is ``collect``'s copy.
 
 Precise path (``precise=True``).  The device pyramid
 (``cfg.device_pyramid``, the default): the original frame is uploaded once;
@@ -72,6 +76,7 @@ from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
                                       resize_cv2_cubic, resize_u8_cubic,
                                       resize_u8_linear)
+from tpupose_torch.ops.upload import to_device
 from tpupose_torch.parallel.mesh import (SLAB_MULTIPLE, Mesh, all_gather_list,
                                          data_part, replicate)
 from tpupose_torch.parallel.spatial import SpatialSlabs, spatial_halos
@@ -114,12 +119,6 @@ def float32_numerics():
             yield
     finally:
         torch.set_float32_matmul_precision(old)
-
-
-def stack_results(results: List[PoseResult]) -> PoseResult:
-    """Per-frame ``PoseResult``s -> one with a leading batch axis on every
-    field (a batched program's output)."""
-    return PoseResult(*(torch.stack(fields) for fields in zip(*results)))
 
 
 def results_to_host(results: List[PoseResult]) -> List[PoseResult]:
@@ -374,8 +373,8 @@ class PoseDetector:
         """(B, H, W, 3) uint8 network-size frames -> channel-first
         (B, 38, h, w) PAFs and (B, 19, h, w) heatmaps at ``map_hw``."""
         with float32_numerics(), torch.no_grad():
-            return self._fast_maps(
-                None, torch.from_numpy(imgs_u8).to(self.device), map_hw)
+            return self._fast_maps(None, to_device(imgs_u8, self.device),
+                                   map_hw)
 
     def _fast_maps(self, weights, imgs_u8: torch.Tensor,
                    map_hw: Tuple[int, int]):
@@ -404,9 +403,8 @@ class PoseDetector:
         ``PoseResult`` with a leading batch axis."""
 
         def fn(weights, imgs_u8):
-            paf, hm = self._fast_maps(weights, imgs_u8, map_hw)
-            return stack_results([self._postprocess(p, h)
-                                  for p, h in zip(paf, hm)])
+            return self._postprocess(*self._fast_maps(weights, imgs_u8,
+                                                      map_hw))
 
         return fn
 
@@ -448,8 +446,8 @@ class PoseDetector:
         img = torch.stack([resize_cv2_cubic(f.float(), scaled_hw)
                            for f in imgs_u8])
         img = torch.clamp(torch.round(img), 0.0, 255.0)
-        pad = torch.tensor(self.cfg.pad_value, dtype=torch.float32,
-                           device=img.device)
+        pad = to_device(np.asarray(self.cfg.pad_value, np.float32),
+                        img.device)
         canvas = pad.expand(img.shape[0], *canvas_hw, 3).clone()
         canvas[:, :s_h, :s_w] = img
         return canvas
@@ -518,9 +516,7 @@ class PoseDetector:
         axis."""
 
         def fn(paf_list, hm_list):
-            paf, hm = self._average(paf_list, hm_list)
-            return stack_results([self._postprocess(p, h)
-                                  for p, h in zip(paf, hm)])
+            return self._postprocess(*self._average(paf_list, hm_list))
 
         return fn
 
@@ -588,8 +584,7 @@ class PoseDetector:
         device_pyramid = self.cfg.device_pyramid
         with float32_numerics(), torch.no_grad():
             if device_pyramid:
-                imgs_u8 = torch.from_numpy(np.ascontiguousarray(imgs)).to(
-                    self.device)
+                imgs_u8 = to_device(imgs, self.device)
             fused = {}
             pair = self._fused_small_pair(geoms)
             if pair is not None:
@@ -610,8 +605,7 @@ class PoseDetector:
                         else:
                             padded, pad = self._host_scaled(imgs, scaled_hw)
                             paf, hm = self._padded_scale_maps(
-                                torch.from_numpy(padded).to(self.device),
-                                pad, post_hw)
+                                to_device(padded, self.device), pad, post_hw)
                 paf_list.append(paf)
                 hm_list.append(hm)
         return paf_list, hm_list, post_hw
@@ -629,8 +623,8 @@ class PoseDetector:
         return "pose"
 
     def _run(self, imgs: np.ndarray, precise: bool, postprocess: bool):
-        """(B, H, W, 3) uint8 original frames -> per frame its
-        ``PoseResult`` on the device (``postprocess``), or the batch's
+        """(B, H, W, 3) uint8 original frames -> the batch's ``PoseResult``
+        (a leading frame axis) on the device (``postprocess``), or its
         channel-first maps the postprocess consumes; plus the map ->
         original scale factors.  The precise pyramid if ``precise``."""
         orig_h, orig_w = imgs.shape[1:3]
@@ -652,13 +646,13 @@ class PoseDetector:
                 return self._maps(resized, (map_h, map_w))
         with annotate(name):
             paf, hm = maps()
-            out = ([self._postprocess(p, h) for p, h in zip(paf, hm)]
-                   if postprocess else (paf, hm))
+            out = self._postprocess(paf, hm) if postprocess else (paf, hm)
         return out, (orig_w / map_w, orig_h / map_h)
 
     def _postprocess(self, paf: torch.Tensor, hm: torch.Tensor) -> PoseResult:
-        """``img_len`` is the map width: the fast path's map size, or the
-        precise path's postprocess resolution."""
+        """The postprocess of (..., 38, h, w) and (..., 19, h, w) maps, a
+        frame axis or none; ``img_len`` is the map width: the fast path's
+        map size, or the precise path's postprocess resolution."""
         with torch.no_grad():
             return postprocess_pose(paf, hm, paf.shape[-1], self.cfg)
 
@@ -671,14 +665,16 @@ class PoseDetector:
 
     def submit(self, orig_img: np.ndarray):
         """Run one frame up to its result on the device; returns a pending
-        handle for ``collect``.  Kernels are queued asynchronously, except
-        for the grouping fold's one read of its trip count."""
+        handle for ``collect``.  On the card everything is queued
+        asynchronously: the frame's upload (from pinned memory), the
+        forward and the postprocess's kernels; nothing reads back to the
+        host before ``collect``'s one device-to-host copy."""
         return self._submit(orig_img, self.precise)
 
     def _submit(self, orig_img: np.ndarray, precise: bool):
-        (result,), (scale_x, scale_y) = self._run(
+        result, (scale_x, scale_y) = self._run(
             np.asarray(orig_img)[None], precise, postprocess=True)
-        return result, scale_x, scale_y
+        return PoseResult(*(f[0] for f in result)), scale_x, scale_y
 
     def collect(self, pending):
         """Copy a ``submit`` handle's result to the host; (poses, scores)."""
@@ -695,14 +691,15 @@ class PoseDetector:
         """(B, H, W, 3) uint8 same-sized frames -> list of (poses, scores).
 
         One upload and one batched forward (per pyramid scale in precise
-        mode); the postprocess runs per frame on the device, and one
+        mode), one batched postprocess on the device, and one
         device-to-host copy fetches every result.  On a mesh every rank
         passes the same frames and gets the whole list; ``n_data`` must
         divide ``B`` (else ``ValueError``)."""
-        results, (scale_x, scale_y) = self._run_batch(
+        result, (scale_x, scale_y) = self._run_batch(
             np.asarray(imgs), postprocess=True)
-        out = [self._emit(r, scale_x, scale_y)
-               for r in results_to_host(results)]
+        (host,) = results_to_host([result])
+        out = [self._emit(PoseResult(*(f[j] for f in host)), scale_x,
+                          scale_y) for j in range(len(host.valid))]
         if self.mesh is None:
             return out
         return all_gather_list(out, self.mesh.data_group)

@@ -6,15 +6,20 @@ reference's four cases and its order: new subsets take the next free slot
 and merged-away slots go inactive, so slots are visited in the reference's
 creation order.
 
-The fold is sequential.  Its trip count, the number of valid connections,
-is read to the host once per frame, together with their compacted order;
-every step then runs as branch-free tensor ops on the tensors' device.
+The fold is sequential.  On the card it is one kernel launch for all the
+frames (``ops/group_fold.py``, ``csrc/group_fold.cu``), which loops on the
+device as the JAX package's ``while_loop`` does.  ``fold_connections``
+below is its plain version: its trip count, the number of valid
+connections, is read to the host once per frame, together with their
+compacted order; every step then runs as branch-free tensor ops on the
+tensors' device.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from tpupose_torch.config import (LIMBS_FROM, LIMBS_TO, NON_SPAWNING_LIMBS,
@@ -26,13 +31,13 @@ from tpupose_torch.ops.peaks import Peaks
 class Subsets(NamedTuple):
     """Fixed-shape person-subset table.
 
-    joint_slot: (S, 18) int64 — peak slot per joint, -1 if absent
-    score:      (S,) float32 — accumulated peak + connection score
-    count:      (S,) float32 — joint count.  Float because the reference's
-                merge adds the connection score to it too
+    joint_slot: (..., S, 18) int64 — peak slot per joint, -1 if absent
+    score:      (..., S) float32 — accumulated peak + connection score
+    count:      (..., S) float32 — joint count.  Float because the
+                reference's merge adds the connection score to it too
                 (``pose_detector.py:215-217``), a quirk kept for parity.
-    valid:      (S,) bool — survives the final limb-count/score filter
-    spawns_suppressed: () int64 — spawns refused by a full table
+    valid:      (..., S) bool — survives the final limb-count/score filter
+    spawns_suppressed: (...) int64 — spawns refused by a full table
     """
 
     joint_slot: torch.Tensor
@@ -44,7 +49,8 @@ class Subsets(NamedTuple):
 
 def group_keypoints(connections: Connections, peaks: Peaks,
                     cfg: InferenceConfig) -> Subsets:
-    """Fold all valid connections into subsets."""
+    """Fold all valid connections into subsets (the plain version, on
+    every device; the pipeline calls ``ops/library.py::group_keypoints``)."""
     return fold_connections(connections.a_slot, connections.b_slot,
                             connections.score, connections.valid,
                             peaks.score, cfg.max_subsets,
@@ -57,9 +63,26 @@ def fold_connections(a_slot: torch.Tensor, b_slot: torch.Tensor,
                      peak_score: torch.Tensor, max_subsets: int,
                      n_subset_limbs_thresh, subset_score_thresh) -> Subsets:
     """:func:`group_keypoints` on the tensors it reads: the connections'
-    (L, K) slots, scores and validity, the peaks' (J, K) scores, and the
-    config's table size and final filter (``ops/library.py`` wraps this as
-    ``tpupose::group_keypoints``)."""
+    (..., L, K) slots, scores and validity, the peaks' (..., J, K) scores,
+    and the config's table size and final filter; frame by frame over the
+    leading axes.  The plain version of ``ops/group_fold.py``'s kernel."""
+    lead = a_slot.shape[:-2]
+    if lead:
+        frames = [_fold_frame(*(t.reshape(-1, *t.shape[-2:])[i] for t in (
+            a_slot, b_slot, conn_scores, conn_valid, peak_score)),
+            max_subsets, n_subset_limbs_thresh, subset_score_thresh)
+            for i in range(int(np.prod(lead, dtype=np.int64)))]
+        return Subsets(*(torch.stack(f).reshape(*lead, *f[0].shape)
+                         for f in zip(*frames)))
+    return _fold_frame(a_slot, b_slot, conn_scores, conn_valid, peak_score,
+                       max_subsets, n_subset_limbs_thresh,
+                       subset_score_thresh)
+
+
+def _fold_frame(a_slot, b_slot, conn_scores, conn_valid, peak_score,
+                max_subsets, n_subset_limbs_thresh, subset_score_thresh
+                ) -> Subsets:
+    """One frame's fold: (L, K) connections, (J, K) peak scores."""
     k = a_slot.shape[1]
     s_cap = max_subsets
     dev = a_slot.device
@@ -167,16 +190,18 @@ def fold_connections(a_slot: torch.Tensor, b_slot: torch.Tensor,
 
 def subsets_to_poses(subsets: Subsets, peaks: Peaks
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Subset table -> (poses (S, 18, 3) of (x, y, v), person_valid (S,)).
+    """Subset table -> (poses (..., S, 18, 3) of (x, y, v), person_valid
+    (..., S)).
 
     v = 2 for present joints; absent joints and invalid persons are zero
     rows.  Scores stay ``subsets.score`` (the raw accumulated score)."""
-    num_joints = subsets.joint_slot.shape[1]
     slots = subsets.joint_slot.clamp(min=0)
-    joints = torch.arange(num_joints, device=slots.device)[None, :]
-    xs = peaks.x[joints, slots]
-    ys = peaks.y[joints, slots]
-    present = (subsets.joint_slot >= 0) & subsets.valid[:, None]
+
+    def at_slots(table):        # (..., J, K) -> (..., S, J)
+        return torch.gather(table.transpose(-1, -2), -2, slots)
+
+    xs, ys = at_slots(peaks.x), at_slots(peaks.y)
+    present = (subsets.joint_slot >= 0) & subsets.valid[..., None]
     zero = torch.zeros_like(xs)
     poses = torch.stack([torch.where(present, xs, zero),
                          torch.where(present, ys, zero),

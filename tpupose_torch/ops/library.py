@@ -1,23 +1,24 @@
-"""``torch.library`` custom ops: the port's CUDA kernels and the grouping
-fold, as opaque operators that ``torch.export`` can trace.
+"""``torch.library`` custom ops: the port's CUDA kernels, as opaque
+operators that ``torch.export`` can trace.
 
 The kernels' wrappers launch through ``ctypes`` on raw device pointers, and
-the grouping fold reads its trip count to the host and loops in Python over
-data-dependent indices; neither traces.  Each is registered here as an op of
-the ``tpupose`` namespace:
+the plain grouping fold reads its trip count to the host and loops in
+Python over data-dependent indices; neither traces.  Each is registered
+here as an op of the ``tpupose`` namespace, whose CUDA implementation calls
+the wrapper, which launches the hand kernel or raises and counts the launch
+in its ``launches`` and ``shapes``, and whose CPU implementation is the
+plain version:
 
 - ``tpupose::blur_nms``, ``tpupose::conv7_s8``, ``tpupose::conv_s8`` and
-  ``tpupose::requant_epilogue``: the CUDA implementation calls the wrapper
-  (``ops/blur_nms.py``, ``ops/conv7.py``, ``ops/conv_s8.py``,
-  ``ops/requant.py``), which launches the hand kernel or raises, and counts
-  the launch in its ``launches`` and ``shapes``; the CPU implementation is
-  the plain version;
-- ``tpupose::group_keypoints``: the fold of ``ops/grouping.py`` with its one
-  host read inside the op, on every device (it is not a kernel);
-- ``tpupose::greedy_match``: the PAF matcher of ``ops/paf.py``, on every
-  device (not a kernel either).  Its K = 32 unrolled steps are ~1,450 of
-  the ~1,960 nodes a traced fast-path program has without it, and export,
-  save and load times grow with the node count.
+  ``tpupose::requant_epilogue``: ``ops/blur_nms.py``, ``ops/conv7.py``,
+  ``ops/conv_s8.py``, ``ops/requant.py``;
+- ``tpupose::greedy_match``: ``ops/greedy_match.py`` (plain version
+  ``ops/paf.py::greedy_match``), on (..., L, K, K) candidates, a frame
+  axis or none.  As an op, the plain version's K = 32 unrolled steps
+  (~1,450 nodes) stay out of a traced CPU program, and export, save and
+  load times grow with the node count;
+- ``tpupose::group_keypoints``: ``ops/group_fold.py`` (plain version
+  ``ops/grouping.py::fold_connections``), on (..., L, K) connections.
 
 Each op's fake implementation gives its output shapes and dtypes, so a
 program is traced without running it.  The ops are registered with
@@ -46,6 +47,8 @@ from torch import Tensor
 from tpupose_torch.ops import blur_nms as _bn
 from tpupose_torch.ops import conv7 as _c7
 from tpupose_torch.ops import conv_s8 as _cs
+from tpupose_torch.ops import greedy_match as _gm
+from tpupose_torch.ops import group_fold as _gf
 from tpupose_torch.ops import requant as _rq
 
 _ROUTE = threading.local()
@@ -60,8 +63,8 @@ def tracing() -> bool:
 
 @contextlib.contextmanager
 def traced_ops():
-    """Route this thread's kernel and fold calls through the ``tpupose::*``
-    ops while the block runs (an export traces inside it)."""
+    """Route this thread's kernel calls through the ``tpupose::*`` ops
+    while the block runs (an export traces inside it)."""
     before = tracing()
     _ROUTE.traced = True
     try:
@@ -199,31 +202,26 @@ def requant_epilogue(accs: Sequence[Tensor], mults: Sequence[Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _greedy_match(score, valid, n_a, n_b):
-    from tpupose_torch.ops.paf import greedy_match as match
-
-    return tuple(match(score, valid, n_a, n_b))
-
-
 def _greedy_match_fake(score, valid, n_a, n_b):
-    n_limbs, k = score.shape[:2]
-    return (score.new_empty((n_limbs, k), dtype=torch.long),
-            score.new_empty((n_limbs, k), dtype=torch.long),
-            score.new_empty((n_limbs, k)),
-            score.new_empty((n_limbs, k), dtype=torch.bool))
+    shape = score.shape[:-1]
+    return (score.new_empty(shape, dtype=torch.long),
+            score.new_empty(shape, dtype=torch.long),
+            score.new_empty(shape),
+            score.new_empty(shape, dtype=torch.bool))
 
 
 _define("greedy_match(Tensor score, Tensor valid, Tensor n_a, Tensor n_b) "
         "-> (Tensor, Tensor, Tensor, Tensor)",
-        {"CompositeExplicitAutograd": _greedy_match}, _greedy_match_fake)
+        {"CUDA": _gm.greedy_match, "CPU": _gm.greedy_match},
+        _greedy_match_fake)
 
 
 def greedy_match(score: Tensor, valid: Tensor, n_a: Tensor, n_b: Tensor):
-    """``ops/paf.py::greedy_match``, through ``tpupose::greedy_match`` when
-    traced."""
+    """``ops/greedy_match.py::greedy_match``, through
+    ``tpupose::greedy_match`` when traced."""
     if tracing():
         return _OPS.greedy_match.default(score, valid, n_a, n_b)
-    return _greedy_match(score, valid, n_a, n_b)
+    return _gm.greedy_match(score, valid, n_a, n_b)
 
 
 # ---------------------------------------------------------------------------
@@ -231,44 +229,37 @@ def greedy_match(score: Tensor, valid: Tensor, n_a: Tensor, n_b: Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _group_keypoints(a_slot, b_slot, conn_score, conn_valid, peak_score,
-                     max_subsets, n_subset_limbs_thresh, subset_score_thresh):
-    from tpupose_torch.ops.grouping import fold_connections
-
-    return tuple(fold_connections(
-        a_slot, b_slot, conn_score, conn_valid, peak_score, max_subsets,
-        n_subset_limbs_thresh, subset_score_thresh))
-
-
 def _group_keypoints_fake(a_slot, b_slot, conn_score, conn_valid, peak_score,
                           max_subsets, n_subset_limbs_thresh,
                           subset_score_thresh):
     from tpupose_torch.config import NUM_JOINTS
 
-    s = max_subsets
-    return (a_slot.new_empty((s, NUM_JOINTS), dtype=torch.long),
-            conn_score.new_empty((s,)), conn_score.new_empty((s,)),
-            conn_valid.new_empty((s,)),
-            a_slot.new_empty((), dtype=torch.long))
+    lead = a_slot.shape[:-2]
+    return (a_slot.new_empty((*lead, max_subsets, NUM_JOINTS),
+                             dtype=torch.long),
+            conn_score.new_empty((*lead, max_subsets)),
+            conn_score.new_empty((*lead, max_subsets)),
+            conn_valid.new_empty((*lead, max_subsets)),
+            a_slot.new_empty(lead, dtype=torch.long))
 
 
 _define("group_keypoints(Tensor a_slot, Tensor b_slot, Tensor conn_score, "
         "Tensor conn_valid, Tensor peak_score, int max_subsets, "
         "float n_subset_limbs_thresh, float subset_score_thresh) -> "
         "(Tensor, Tensor, Tensor, Tensor, Tensor)",
-        {"CompositeExplicitAutograd": _group_keypoints},
+        {"CUDA": _gf.group_fold, "CPU": _gf.group_fold},
         _group_keypoints_fake)
 
 
 def group_keypoints(connections, peaks, cfg):
-    """``ops/grouping.py::group_keypoints``, through
+    """The fold of ``ops/group_fold.py`` (the kernel on CUDA tensors, the
+    plain ``ops/grouping.py::fold_connections`` on CPU ones), through
     ``tpupose::group_keypoints`` when traced."""
-    from tpupose_torch.ops.grouping import Subsets, group_keypoints as fold
+    from tpupose_torch.ops.grouping import Subsets
 
-    if tracing():
-        return Subsets(*_OPS.group_keypoints.default(
-            connections.a_slot, connections.b_slot, connections.score,
+    args = (connections.a_slot, connections.b_slot, connections.score,
             connections.valid, peaks.score, int(cfg.max_subsets),
-            float(cfg.n_subset_limbs_thresh),
-            float(cfg.subset_score_thresh)))
-    return fold(connections, peaks, cfg)
+            float(cfg.n_subset_limbs_thresh), float(cfg.subset_score_thresh))
+    if tracing():
+        return Subsets(*_OPS.group_keypoints.default(*args))
+    return Subsets(*_gf.group_fold(*args))

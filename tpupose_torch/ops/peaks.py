@@ -2,7 +2,8 @@
 
 Per joint channel: SciPy-reflect Gaussian blur, then pixels strictly above
 the threshold and strictly above their 4 neighbours (out-of-image neighbours
-count as 0), gathered into a static ``(J, K)`` table in row-major scan order.
+count as 0), gathered into a static ``(J, K)`` table in row-major scan order; a leading
+frame axis ``(B, J, H, W) -> (B, J, K)`` runs all ``B·J`` maps as one batch.
 ``mode="conv"`` is the reference's GPU branch instead: a zero-padded
 ``ksize`` Gaussian and the ``>=`` neighbour rule, plain PyTorch on every
 device (plain XLA in the JAX package: no kernel backs it).
@@ -26,11 +27,11 @@ from tpupose_torch.ops.library import blur_nms
 class Peaks(NamedTuple):
     """Static-shape peak table.
 
-    x, y:    (J, K) float32 peak coordinates (heatmap pixel space)
-    score:   (J, K) float32 smoothed-heatmap value at the peak
-    valid:   (J, K) bool
-    dropped: () int64 — peaks beyond the K capacity (0 = exact reference
-             semantics, >0 = a crowd overflowed the table)
+    x, y:    (..., J, K) float32 peak coordinates (heatmap pixel space)
+    score:   (..., J, K) float32 smoothed-heatmap value at the peak
+    valid:   (..., J, K) bool
+    dropped: (...) int64 — peaks beyond the K capacity (0 = exact reference
+             semantics, >0 = a crowd overflowed the table), per frame
     """
 
     x: torch.Tensor
@@ -54,15 +55,16 @@ def extract_peaks(mask: torch.Tensor, smoothed: torch.Tensor,
                   max_peaks: int) -> Peaks:
     """Select up to ``max_peaks`` peaks per joint in row-major scan order.
 
-    mask, smoothed: (J, H, W).  Keys are ``hw - scan_idx`` for peaks and 0
-    elsewhere, so the top K keys are the first K peaks.  Valid keys are
-    unique; the ties among the zero keys, whose order ``torch.topk`` leaves
-    open, are masked out.
+    mask, smoothed: (..., J, H, W); one ``topk`` over all the frames'
+    joint rows.  Keys are ``hw - scan_idx`` for peaks and 0 elsewhere, so
+    the top K keys are the first K peaks.  Valid keys are unique; the ties
+    among the zero keys, whose order ``torch.topk`` leaves open, are masked
+    out.
     """
-    j, h, w = mask.shape
+    lead, (j, h, w) = mask.shape[:-3], mask.shape[-3:]
     hw = h * w
-    flat_mask = mask.reshape(j, hw)
-    flat_score = smoothed.reshape(j, hw)
+    flat_mask = mask.reshape(-1, hw)
+    flat_score = smoothed.reshape(-1, hw)
     # float32 keys are exact below 2^24, as in the JAX version.
     key_dtype = torch.float32 if hw < (1 << 24) else torch.int64
     scan_idx = torch.arange(hw, device=mask.device)
@@ -78,12 +80,17 @@ def extract_peaks(mask: torch.Tensor, smoothed: torch.Tensor,
     xs = (top_idx % w).float()
     scores = torch.gather(flat_score, 1, top_idx)
     zero = torch.zeros_like(ys)
+
+    def table(t):
+        return t.reshape(*lead, j, max_peaks)
+
     return Peaks(
-        x=torch.where(valid, xs, zero),
-        y=torch.where(valid, ys, zero),
-        score=torch.where(valid, scores, zero),
-        valid=valid,
-        dropped=flat_mask.sum() - valid.sum(),
+        x=table(torch.where(valid, xs, zero)),
+        y=table(torch.where(valid, ys, zero)),
+        score=table(torch.where(valid, scores, zero)),
+        valid=table(valid),
+        dropped=(flat_mask.reshape(*lead, -1).sum(dim=-1)
+                 - valid.reshape(*lead, -1).sum(dim=-1)),
     )
 
 
@@ -91,10 +98,11 @@ def find_peaks(heatmaps: torch.Tensor, sigma: float, thresh: float,
                max_peaks: int, mode: str = "scipy", ksize: int = 17) -> Peaks:
     """Blur -> NMS -> static top-K table.
 
-    heatmaps: (J, H, W) *without* the background channel.  ``"scipy"``: the
-    fused blur + NMS runs through :func:`blur_nms`, which picks the CUDA
-    kernel for a CUDA tensor and the plain version for a CPU one (through
-    ``tpupose::blur_nms`` in a traced program); no map-size cut applies.
+    heatmaps: (..., J, H, W) *without* the background channel.
+    ``"scipy"``: the fused blur + NMS runs through :func:`blur_nms` on all
+    the frames' maps at once, which picks the CUDA kernel for a CUDA tensor
+    and the plain version for a CPU one (through ``tpupose::blur_nms`` in a
+    traced program); no map-size cut applies.
     ``"conv"``: ``gaussian_blur_conv_zero`` of ``ksize`` and
     ``nms_mask_ge``, plain PyTorch.
     """
@@ -102,7 +110,9 @@ def find_peaks(heatmaps: torch.Tensor, sigma: float, thresh: float,
         smoothed = gaussian_blur_conv_zero(heatmaps, sigma, ksize)
         mask = nms_mask_ge(smoothed, thresh)
     elif mode == "scipy":
-        smoothed, mask = blur_nms(heatmaps.contiguous(), sigma, thresh)
+        maps = heatmaps.reshape(-1, *heatmaps.shape[-2:]).contiguous()
+        smoothed, mask = (t.reshape(heatmaps.shape)
+                          for t in blur_nms(maps, sigma, thresh))
     else:
         raise ValueError(f"unknown peak NMS mode {mode!r}")
     return extract_peaks(mask, smoothed, max_peaks)

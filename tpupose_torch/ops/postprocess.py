@@ -2,8 +2,13 @@
 ``tpupose/ops/postprocess.py``).
 
 Blur + NMS, the top-K peak table, PAF scoring, greedy matching, grouping
-and the pose table all run on the maps' device; a detector copies the
-result to the host once per frame.
+and the pose table all run on the maps' device, for a batch of frames at
+once: maps with a leading frame axis give a result with one (the JAX
+package ``vmap``s the per-frame function inside ``detect_batch``'s
+program).  On the card, matching and grouping are hand kernels that loop
+on the device (``ops/greedy_match.py``, ``ops/group_fold.py``), so nothing
+here reads a value back to the host; a detector copies the whole batch's
+result to the host once.
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ from tpupose_torch.ops.peaks import find_peaks
 
 
 class PoseResult(NamedTuple):
-    """poses: (S, 18, 3) [x, y, v]; scores: (S,); valid: (S,) bool;
-    num_peaks: () total peak count.
+    """poses: (..., S, 18, 3) [x, y, v]; scores: (..., S); valid: (..., S)
+    bool; num_peaks: (...) total peak count; the leading axes are the
+    maps' frame axis, or none.
 
     Saturation counters (0 in any scene within the static capacity, where
     outputs are exactly the reference's): ``peaks_dropped`` = peaks beyond
@@ -39,8 +45,9 @@ class PoseResult(NamedTuple):
 
 def postprocess_pose(pafs: torch.Tensor, heatmaps: torch.Tensor,
                      img_len: float, cfg: InferenceConfig) -> PoseResult:
-    """pafs: (38, H, W); heatmaps: (19, H, W), at postprocess resolution.
-    ``img_len`` is the map width, used by the PAF distance prior."""
+    """pafs: (..., 38, H, W); heatmaps: (..., 19, H, W), at postprocess
+    resolution, with a frame axis (B, ...) or without.  ``img_len`` is the
+    map width, used by the PAF distance prior."""
     peaks = _peaks(heatmaps, cfg)
     connections = compute_connections(pafs, peaks, float(img_len), cfg,
                                       LIMBS_FROM, LIMBS_TO)
@@ -50,9 +57,9 @@ def postprocess_pose(pafs: torch.Tensor, heatmaps: torch.Tensor,
 def postprocess_pose_from_rows(paf_rows: torch.Tensor,
                                heatmaps: torch.Tensor, hw, img_len: float,
                                cfg: InferenceConfig) -> PoseResult:
-    """:func:`postprocess_pose` on PAF sample rows: paf_rows (L, H*W, 2),
-    limb-major (x, y) per pixel; heatmaps (19, H, W); hw (H, W).  The same
-    result, without the (38, H, W) -> rows transpose."""
+    """:func:`postprocess_pose` on PAF sample rows: paf_rows (..., L, H*W,
+    2), limb-major (x, y) per pixel; heatmaps (..., 19, H, W); hw (H, W).
+    The same result, without the (38, H, W) -> rows transpose."""
     peaks = _peaks(heatmaps, cfg)
     connections = compute_connections_from_rows(
         paf_rows, hw, peaks, float(img_len), cfg, LIMBS_FROM, LIMBS_TO)
@@ -60,7 +67,7 @@ def postprocess_pose_from_rows(paf_rows: torch.Tensor,
 
 
 def _peaks(heatmaps: torch.Tensor, cfg: InferenceConfig):
-    return find_peaks(heatmaps[:-1], cfg.gaussian_sigma,
+    return find_peaks(heatmaps[..., :-1, :, :], cfg.gaussian_sigma,
                       cfg.heatmap_peak_thresh, cfg.max_peaks_per_joint,
                       mode=cfg.nms_mode, ksize=cfg.ksize)
 
@@ -72,7 +79,7 @@ def _finish(peaks, connections, cfg: InferenceConfig) -> PoseResult:
         poses=poses,
         scores=torch.where(person_valid, subsets.score, 0.0),
         valid=person_valid,
-        num_peaks=peaks.valid.sum(),
+        num_peaks=peaks.valid.sum(dim=(-2, -1)),
         peaks_dropped=peaks.dropped,
         spawns_suppressed=subsets.spawns_suppressed,
     )

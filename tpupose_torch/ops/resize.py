@@ -16,6 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from tpupose_torch.ops.upload import to_device
+
 
 @functools.lru_cache(maxsize=256)
 def _linear_matrix_align_corners(in_size: int, out_size: int) -> np.ndarray:
@@ -104,8 +106,8 @@ def resize_hw(x: torch.Tensor, out_hw: Tuple[int, int],
     out_h, out_w = out_hw
     if (in_h, in_w) == (out_h, out_w):
         return x
-    mh = torch.from_numpy(builder(in_h, out_h)).to(x.device)
-    mw = torch.from_numpy(builder(in_w, out_w)).to(x.device)
+    mh = to_device(builder(in_h, out_h), x.device)
+    mw = to_device(builder(in_w, out_w), x.device)
     lead = x.shape[:-3]
     y = torch.matmul(mh, x.reshape(*lead, in_h, in_w * c))
     y = torch.matmul(mw, y.reshape(*lead, out_h, in_w, c))
