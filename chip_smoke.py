@@ -39,9 +39,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``tests/postprocess_cases.py`` (exact ties, nothing valid, every score
    ``-inf``, ``n_a = 0``, a full K = 32 limb; merges, two-subset fills,
    three-subset matches, the non-spawning limbs, a saturated table with
-   spawns suppressed); both timed from CUDA-graph replays in turns with
-   their plain versions (the plain fold by the host clock: it reads its
-   trip count), beside their bounds and the fold's sequential steps; one
+   spawns suppressed, tables of over 32 subsets) and on its crowd at
+   B = 1 and 8 (full K = 32 limbs for the matcher, 32 people on every
+   limb for the fold: 608 steps a frame); both timed at phase 3's frames and on the crowd from
+   CUDA-graph replays in turns with their plain versions (the plain fold
+   by the host clock: it reads its trip count), beside their byte bounds,
+   their longest chains of sequential steps, us a step and chain floors
+   (the CUDA-graph time of a 1-element launch plus the steps times the
+   kernel's marginal step from phase 3's frame to the crowd's); one
    postprocess's device time and launches (``torch.profiler``) at B = 1
    and 3.
 4. Hold the int8 kernels against their plain versions, bit-equal: conv7 at
@@ -617,6 +622,26 @@ def group_fold_bound(frames, n_limbs, k, s, steps):
     return _bound(n_bytes, steps * s * 2, F32_NONFMA_OPS_PER_S)
 
 
+def _match_steps(n_a, n_b, valid, k):
+    """The matcher's longest chain: the most dependent steps any block
+    (frame and limb) takes, its accepted connections plus the scan that
+    stopped it early; blocks run side by side."""
+    import torch
+
+    taken = valid.sum(dim=-1)
+    cap = torch.clamp(torch.minimum(n_a, n_b), max=k)
+    return int((taken + (taken < cap).long()).max())
+
+
+def _launch_floor_ms():
+    """The CUDA-graph replay time of one 1-element PyTorch launch: what
+    any kernel launch costs before it does work."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+    return _graph_ms(lambda: one.add_(1.0), 20)
+
+
 def _scans(n_a, n_b, valid, k):
     """The matcher's scans over the candidates: per row its accepted
     connections, plus one that found none when it stopped early."""
@@ -629,12 +654,14 @@ def _scans(n_a, n_b, valid, k):
 
 def run_device_postprocess(det, cfg, frames):
     """Phase 3b: greedy_match and group_fold against their plain versions
-    on the card, exactly, at phase 3's frames (B = 1 and 3) and on the
-    planted tables of ``tests/postprocess_cases.py``; their times from
+    on the card, exactly, at phase 3's frames (B = 1 and 3), on the
+    planted tables of ``tests/postprocess_cases.py`` and on its crowd
+    (B = 1 and 8); their times at phase 3's frames and on the crowd from
     CUDA-graph replays in turns with the plain versions, beside their
-    bounds; one postprocess's launches (``torch.profiler``).  Returns the
-    two kernels' records: (max_abs_err, ms, plain_ms, (bound_ms,
-    bound_by))."""
+    bounds and chain floors; one postprocess's launches
+    (``torch.profiler``).  Returns the two kernels' records:
+    ((max_abs_err, ms, plain_ms, (bound_ms, bound_by)), chain_floor_ms),
+    at phase 3's one frame."""
     import numpy as np
     import torch
 
@@ -707,6 +734,14 @@ def run_device_postprocess(det, cfg, frames):
                     for c in fold_steps(a[f], bb[f], v[f]):
                         cases[FOLD_CASE_NAMES[c]] = cases.get(
                             FOLD_CASE_NAMES[c], 0) + 1
+    # over 32 subsets a frame: the match test's second 32-row chunk
+    for cap in (40, 64):
+        for b in (1, 3):
+            args = _fold_args(np.random.RandomState(3), (b,),
+                              cases_module.WIDE_SLOTS, NUM_LIMBS)
+            same(f"group_fold wide S {cap} B = {b}",
+                 gf.group_fold(*args, cap, 2, 0.3),
+                 fold_connections(*args, cap, 2, 0.3))
     if suppressed == 0 or len(cases) != len(FOLD_CASE_NAMES):
         raise AssertionError(f"planted fold cases {cases}, suppressed "
                              f"{suppressed}")
@@ -714,13 +749,37 @@ def run_device_postprocess(det, cfg, frames):
     print(f"planted tables: greedy_match {list(MATCH_CASES)} at B = 1 and "
           f"3 (K = 8, 32 for the full limb) and group_fold over "
           f"{len(FOLD_CASES)} tables (connections by case {cases}, "
-          f"{suppressed} spawns suppressed at S = 4) equal to their plain "
+          f"{suppressed} spawns suppressed at S = 4) and 2 wide ones (over "
+          f"32 subsets a frame, S = 40 and 64) equal to their plain "
           f"versions")
 
+    # --- the crowd: full K = 32 limbs, 32 people on every limb ---
+    crowd = {}
+    for b in (1, 8):
+        m_args = _match_args(np.random.RandomState(6), "full_limb",
+                             (b, NUM_LIMBS), 32)
+        conns = gm.greedy_match(*m_args)
+        same(f"greedy_match crowd B = {b}", conns, paf.greedy_match(*m_args))
+        f_args = [torch.from_numpy(x).cuda() for x in
+                  cases_module.crowd_tables(np.random.RandomState(8), (b,))]
+        folded = gf.group_fold(*f_args, s_cap, *thresh)
+        same(f"group_fold crowd B = {b}", folded,
+             fold_connections(*f_args, s_cap, *thresh))
+        if not (bool(conns[3].all()) and int(folded[3].sum()) == 32 * b):
+            raise AssertionError(f"crowd B = {b}: {int(conns[3].sum())} "
+                                 f"matches, {int(folded[3].sum())} persons")
+        crowd[b] = (m_args, tuple(f_args))
+    torch.cuda.synchronize()
+    print(f"crowd tables at B = 1 and 8: greedy_match on full K = 32 limbs "
+          f"(32 steps a block) and group_fold on 32 people (608 steps a "
+          f"frame, S = {s_cap}) equal to their plain versions")
+
     # --- times, in turns with the plain versions ---
+    launch_ms = statistics.mean([_launch_floor_ms() for _ in range(2)])
+    timed = {f"phase 3, B = {b}": (inputs[b], 5) for b in (1, 3)}
+    timed.update({f"crowd, B = {b}": (crowd[b], 1) for b in (1, 8)})
     numbers = {}
-    for b in (1, 3):
-        m_args, f_args = inputs[b]
+    for label, ((m_args, f_args), fold_iters) in timed.items():
         fns = {
             "greedy_match": lambda: gm.greedy_match(*m_args),
             "greedy_match_plain": lambda: paf.greedy_match(*m_args),
@@ -732,24 +791,49 @@ def run_device_postprocess(det, cfg, frames):
         # the plain fold reads its trip count to the host: not capturable
         for _ in range(2):
             t["group_fold_plain"].append(_host_ms(
-                lambda: fold_connections(*f_args, s_cap, *thresh), 5))
+                lambda: fold_connections(*f_args, s_cap, *thresh),
+                fold_iters))
         t = {name: statistics.mean(v) for name, v in t.items()}
         score, valid, n_a, n_b = m_args
-        scans = _scans(n_a, n_b, inputs[b][1][3], k)
-        steps = int(f_args[3].sum())
-        m_bound = greedy_match_bound(b * NUM_LIMBS, k, scans)
-        f_bound = group_fold_bound(b, NUM_LIMBS, k, s_cap, steps)
-        numbers[b] = dict(t, greedy_match_bound=m_bound,
-                          group_fold_bound=f_bound, scans=scans,
-                          fold_steps=steps)
-        print(f"device postprocess times at B = {b} (ms; kernels and the "
+        kk, b = score.shape[-1], score.shape[0]
+        matched = gm.greedy_match(*m_args)[3]
+        scans = _scans(n_a, n_b, matched, kk)
+        per_frame = f_args[3].sum(dim=(-2, -1))
+        numbers[label] = dict(
+            t, greedy_match_bound=greedy_match_bound(b * NUM_LIMBS, kk,
+                                                     scans),
+            group_fold_bound=group_fold_bound(b, NUM_LIMBS, kk, s_cap,
+                                              int(per_frame.sum())),
+            greedy_match_steps=_match_steps(n_a, n_b, matched, kk),
+            group_fold_steps=int(per_frame.max()), scans=scans)
+    # a dependent step's latency: each kernel's marginal time a step, from
+    # one frame of phase 3 to one frame of the crowd (same call)
+    lo, hi = numbers["phase 3, B = 1"], numbers["crowd, B = 1"]
+    step_ms = {name: (hi[name] - lo[name])
+               / max(hi[f"{name}_steps"] - lo[f"{name}_steps"], 1)
+               for name in ("greedy_match", "group_fold")}
+    for label, n in numbers.items():
+        # the chain floor: the launch floor plus the sequential steps this
+        # input needs at that latency each
+        for name in ("greedy_match", "group_fold"):
+            n[f"{name}_chain_floor"] = (launch_ms + n[f"{name}_steps"]
+                                        * step_ms[name])
+        print(f"device postprocess times, {label} (ms; kernels and the "
               f"plain matcher from CUDA-graph replays of 20 calls, in "
-              f"turns; the plain fold by the host clock, median of 5, it "
-              f"reads its trip count): " + json.dumps(t)
-              + f"; greedy_match bound {m_bound} ({scans} scans of "
-              f"{k * k} candidates), group_fold bound {f_bound} ({steps} "
-              f"sequential steps, {t['group_fold'] / max(steps, 1)!r} ms "
-              f"a step)")
+              f"turns; the plain fold by the host clock, median of "
+              f"{timed[label][1]}, it reads its trip count): "
+              + json.dumps({k: n[k] for k in (
+                  "greedy_match", "greedy_match_plain", "group_fold",
+                  "group_fold_plain")}))
+        for name in ("greedy_match", "group_fold"):
+            bound_ms, bound_by = n[f"{name}_bound"]
+            print(f"  {name}: {n[f'{name}_steps']} sequential steps in the "
+                  f"longest block, {n[name] / n[f'{name}_steps'] * 1e3!r} "
+                  f"us a step; byte bound {bound_ms!r} ms ({bound_by}); "
+                  f"chain floor {n[f'{name}_chain_floor']!r} ms = launch "
+                  f"floor {launch_ms!r} + {n[f'{name}_steps']} x "
+                  f"{step_ms[name] * 1e3!r} us (the kernel's marginal step, "
+                  f"phase 3 B = 1 -> crowd B = 1)")
 
     # --- one postprocess's launches ---
     for b in (1, 3):
@@ -764,10 +848,10 @@ def run_device_postprocess(det, cfg, frames):
               f"{_kernel_ms(ops, 'group_fold_kernel')!r} ms")
     print(f"phase 3b: {time.perf_counter() - t_phase:.2f} s")
     # the records: one frame, as __call__ runs them (equal outputs, so no
-    # error)
-    one = numbers[1]
-    return {name: (0.0, one[name], one[f"{name}_plain"],
-                   one[f"{name}_bound"])
+    # error), and its chain floor
+    one = numbers["phase 3, B = 1"]
+    return {name: ((0.0, one[name], one[f"{name}_plain"],
+                    one[f"{name}_bound"]), one[f"{name}_chain_floor"])
             for name in ("greedy_match", "group_fold")}
 
 
@@ -3791,9 +3875,9 @@ def main() -> int:
         # the counterparts of the JAX package's device loops (XLA
         # while_loops, not Pallas kernels)
         ("greedy_match", "tpupose_torch/csrc/greedy_match.cu",
-         "tpupose/ops/paf.py:102", post_records["greedy_match"]),
+         "tpupose/ops/paf.py:102", post_records["greedy_match"][0]),
         ("group_fold", "tpupose_torch/csrc/group_fold.cu",
-         "tpupose/ops/grouping.py:82", post_records["group_fold"]),
+         "tpupose/ops/grouping.py:82", post_records["group_fold"][0]),
     ]
     fusions = {"conv_s8": "requant_epilogue fused into an s8 implicit GEMM "
                           "for the 1x1 and 3x3 int8 layers (kernel route)",
@@ -3807,7 +3891,9 @@ def main() -> int:
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
-        **({"fusion": fusions[name]} if name in fusions else {}))
+        **({"fusion": fusions[name]} if name in fusions else {}),
+        **({"chain_floor_ms": post_records[name][1]}
+           if name in post_records else {}))
         for name, source, replaces,
         (err, ms, plain_ms, (bound_ms, bound_by)) in records]}))
     print(json.dumps({"ok": True, "device": {

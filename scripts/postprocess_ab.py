@@ -15,6 +15,11 @@ frames, with the timers and profiler of this repository's
 - the postprocess of one frame's maps: host ms ending in a synchronize
   (median of 7), and its device time and launches (``torch.profiler``,
   mean of 3);
+- the greedy_match and group_fold kernels alone, from CUDA-graph replays
+  of 20 calls (``chip_smoke.py::_graph_ms``, each input timed twice, in
+  turns): at one frame's tables (phase 3 of ``chip_smoke.py``) and on the
+  crowd of ``tests/postprocess_cases.py`` at B = 1 and 8 (full K = 32
+  limbs for the matcher, 32 people on every limb for the fold);
 - fast f32 ``__call__`` (host clock, median of 7) and ``detect_batch`` of
   3 frames per frame (median of 3);
 - 8 frames through ``submit`` / ``collect`` kept 0 and 2 frames ahead
@@ -65,6 +70,45 @@ def _pipelined_ms(det, frames, depth, reps=3):
     return statistics.median(times)
 
 
+def _kernel_ms(smoke, det, cfg, frames):
+    """The two postprocess kernels alone, ms per call from CUDA-graph
+    replays, on one frame's tables and on the crowd (B = 1 and 8)."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.config import LIMBS_FROM, LIMBS_TO, NUM_LIMBS
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops import group_fold as gf
+    from tpupose_torch.ops import paf
+    from tpupose_torch.ops.peaks import find_peaks
+
+    cases = smoke._cases()
+    thresh = (cfg.max_subsets, cfg.n_subset_limbs_thresh,
+              cfg.subset_score_thresh)
+    with torch.no_grad():
+        (paf_b, hm_b), _ = det._run(frames[:1], False, postprocess=False)
+        rows = paf_b.reshape(1, NUM_LIMBS, 2, -1).transpose(-1, -2)
+        peaks = find_peaks(hm_b[:, :-1], cfg.gaussian_sigma,
+                           cfg.heatmap_peak_thresh, cfg.max_peaks_per_joint)
+        m_args = paf.limb_candidates(rows, tuple(paf_b.shape[-2:]), peaks,
+                                     float(paf_b.shape[-1]), cfg,
+                                     LIMBS_FROM, LIMBS_TO)
+    inputs = {"phase3": (m_args, (*gm.greedy_match(*m_args), peaks.score))}
+    for b in (1, 8):
+        inputs[f"crowd{b}"] = (
+            [torch.from_numpy(x).cuda() for x in cases.match_tables(
+                np.random.RandomState(6), "full_limb", (b, NUM_LIMBS), 32)],
+            [torch.from_numpy(x).cuda() for x in cases.crowd_tables(
+                np.random.RandomState(8), (b,))])
+    fns = {}
+    for name, (m, f) in inputs.items():
+        fns[f"greedy_match_{name}_ms"] = (
+            lambda m=m: gm.greedy_match(*m))
+        fns[f"group_fold_{name}_ms"] = (
+            lambda f=f: gf.group_fold(*f, *thresh))
+    return smoke._round_robin_ms(fns, 20, smoke._graph_ms)
+
+
 def main() -> int:
     sys.path.insert(0, os.getcwd())
     import dataclasses
@@ -109,6 +153,7 @@ def main() -> int:
         ops = smoke._profile_forward(post, None)
     out["postprocess_device_ms"] = sum(v[0] for v in ops.values())
     out["postprocess_launches"] = sum(v[1] for v in ops.values())
+    out.update(_kernel_ms(smoke, det, cfg, frames))
     out["fast_call_ms"] = smoke._host_ms(lambda: det(frames[0]), 7)
     out["detect_batch3_per_frame_ms"] = smoke._host_ms(
         lambda: det.detect_batch(frames[:3]), 3) / 3

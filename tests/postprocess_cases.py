@@ -9,6 +9,10 @@ limb (every candidate valid and distinct, K connections taken).  Fold cases
 subsets collide: merges, two-subset fills, connections that match three
 subsets, the non-spawning limbs and, with a small table, spawns refused by
 a full one; ``fold_steps`` replays which case each connection takes.
+Over ``WIDE_SLOTS`` slots ``fold_tables`` spawns over 32 subsets a frame.
+The crowd (``crowd_tables``): 32 people at K = 32, every limb of every
+person connected, the most fold steps the default K allows (19 x 32 =
+608); ``full_limb`` at K = 32 is the matcher's crowd (32 steps a limb).
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ MATCH_CASES = ("ties", "none_valid", "all_neg_inf", "n_a_zero", "full_limb")
 # (seed, max_subsets): the small table saturates
 FOLD_CASES = tuple((seed, cap) for seed in (0, 1, 2) for cap in (4, 64))
 FOLD_SLOTS = 4
+WIDE_SLOTS = 12  # fold_tables over 12 slots: over 32 subsets a frame
 
 
 def match_tables(rng, name, lead=(3, NUM_LIMBS), k=8):
@@ -63,6 +68,20 @@ def fold_tables(rng, lead=(3,), k=FOLD_SLOTS):
     peaks = rng.uniform(0.05, 1.0, tuple(lead) + (NUM_JOINTS, k)).astype(
         np.float32)
     return a.astype(np.int64), b.astype(np.int64), score, valid, peaks
+
+
+def crowd_tables(rng, lead=(1,), people=32, k=32):
+    """A crowd in ``fold_tables``' layout: person p holds peak slot p on
+    every joint, and every limb carries the valid connection (p, p) with a
+    seeded score, so each limb row holds ``people`` valid connections."""
+    shape = tuple(lead) + (NUM_LIMBS, k)
+    slots = np.broadcast_to(np.arange(k), shape)
+    valid = slots < people
+    a = np.where(valid, slots, -1).astype(np.int64)
+    score = rng.uniform(0.05, 1.0, shape).astype(np.float32)
+    peaks = rng.uniform(0.05, 1.0, tuple(lead) + (NUM_JOINTS, k)).astype(
+        np.float32)
+    return a, a.copy(), score, valid.copy(), peaks
 
 
 FOLD_CASE_NAMES = ("spawn", "attach", "merge", "fill", "ignore", "no spawn")

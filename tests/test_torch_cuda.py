@@ -23,8 +23,8 @@ from tpupose_torch.ops import conv_s8 as cs
 from tpupose_torch.ops import requant as rq
 from tpupose_torch.utils.calibrate import calibrate_output_convs
 
-from postprocess_cases import (FOLD_CASES, MATCH_CASES, fold_tables,
-                               match_tables)
+from postprocess_cases import (FOLD_CASES, MATCH_CASES, WIDE_SLOTS,
+                               crowd_tables, fold_tables, match_tables)
 
 pytestmark = pytest.mark.cuda
 
@@ -1041,6 +1041,63 @@ def test_group_fold_kernel_equals_plain(cuda_device, seed, cap, frames):
     assert gf.group_fold.launches == before + 1
     for g, r, field in zip(got, ref, ref._fields):
         assert g.dtype == r.dtype and torch.equal(g, r), field
+
+
+@pytest.mark.parametrize("frames", [1, 8])
+def test_kernels_on_the_crowd_equal_plain(cuda_device, frames):
+    """The crowd: greedy_match on full K = 32 limbs (32 steps a block) and
+    group_fold on 32 people (608 steps a frame) at S = 64 and 128; the
+    fold on wide tables (over 32 subsets a frame) at S = 40 and 64."""
+    from tpupose_torch.config import NUM_LIMBS
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops import group_fold as gf
+    from tpupose_torch.ops.grouping import fold_connections
+    from tpupose_torch.ops.paf import greedy_match as plain
+
+    m_args = [torch.from_numpy(x).to(cuda_device) for x in match_tables(
+        np.random.RandomState(6), "full_limb", (frames, NUM_LIMBS), 32)]
+    got, ref = gm.greedy_match(*m_args), plain(*m_args)
+    assert bool(ref[3].all())
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    f_args = [torch.from_numpy(x).to(cuda_device) for x in crowd_tables(
+        np.random.RandomState(8), (frames,))]
+    for cap in (64, 128):
+        got = gf.group_fold(*f_args, cap, 2, 0.3)
+        ref = fold_connections(*f_args, cap, 2, 0.3)
+        torch.cuda.synchronize()
+        for g, r, field in zip(got, ref, ref._fields):
+            assert g.dtype == r.dtype and torch.equal(g, r), field
+        assert int(ref.valid.sum()) == 32 * frames
+    # over 32 subsets a frame: the match test's second 32-row chunk
+    w_args = [torch.from_numpy(x).to(cuda_device) for x in fold_tables(
+        np.random.RandomState(3), (frames,), k=WIDE_SLOTS)]
+    for cap in (40, 64):
+        got = gf.group_fold(*w_args, cap, 2, 0.3)
+        ref = fold_connections(*w_args, cap, 2, 0.3)
+        torch.cuda.synchronize()
+        for g, r, field in zip(got, ref, ref._fields):
+            assert g.dtype == r.dtype and torch.equal(g, r), field
+
+
+def test_postprocess_kernels_name_their_limits(cuda_device):
+    """Tables past the kernels' shared memory raise, with the limit."""
+    from tpupose_torch.config import NUM_JOINTS, NUM_LIMBS
+    from tpupose_torch.ops import greedy_match as gm
+    from tpupose_torch.ops import group_fold as gf
+
+    k = gm.MAX_K + 1
+    score = torch.zeros((1, k, k), device=cuda_device)
+    n = torch.ones(1, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match=f"K <= {gm.MAX_K}"):
+        gm.greedy_match(score, score > 0, n, n)
+    k = 512
+    slots = torch.zeros((1, NUM_LIMBS, k), dtype=torch.int64,
+                        device=cuda_device)
+    with pytest.raises(ValueError, match=str(gf.MAX_SMEM_BYTES)):
+        gf.group_fold(slots, slots, slots.float(), slots > 0,
+                      torch.zeros((1, NUM_JOINTS, k), device=cuda_device),
+                      1024, 2, 0.3)
 
 
 @pytest.fixture(scope="module")

@@ -46,8 +46,8 @@ from tpupose_torch.ops import paf as tpaf
 from tpupose_torch.ops import postprocess as tpost
 
 from postprocess_cases import (FOLD_CASE_NAMES, FOLD_CASES, FOLD_SLOTS,
-                               MATCH_CASES, fold_steps, fold_tables,
-                               match_tables)
+                               MATCH_CASES, WIDE_SLOTS, crowd_tables,
+                               fold_steps, fold_tables, match_tables)
 from test_postprocess import _render_scene
 
 CFG = InferenceConfig(max_peaks_per_joint=8, max_subsets=32)
@@ -144,6 +144,31 @@ def test_batched_fold_matches_jax_per_frame(seed, cap):
                                    atol=2e-5, err_msg=name)
 
 
+def test_crowd_fold_matches_jax():
+    """The crowd table (32 people, every limb: 608 steps a frame) through
+    the port's plain fold and JAX's ``group_keypoints`` (jitted, vmapped
+    over two frames) at the default config, field by field."""
+    cfg = InferenceConfig()
+    a, b, s, v, p = crowd_tables(np.random.RandomState(9), (2,))
+    got = tgroup.fold_connections(*(_t(x) for x in (a, b, s, v, p)),
+                                  cfg.max_subsets, cfg.n_subset_limbs_thresh,
+                                  cfg.subset_score_thresh)
+
+    def fold(a, b, s, v, p):
+        peaks = jpeaks.Peaks(x=jnp.zeros_like(p), y=jnp.zeros_like(p),
+                             score=p, valid=jnp.ones(p.shape, bool))
+        return jgroup.group_keypoints(jpaf.Connections(a, b, s, v), peaks,
+                                      cfg)
+
+    ref = jax.jit(jax.vmap(fold))(*(jnp.asarray(x) for x in (a, b, s, v, p)))
+    for name in got._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    assert int(got.valid.sum()) == 2 * 32
+    assert (got.joint_slot[:, :32] == torch.arange(32)[:, None]).all()
+
+
 def _scenes(seeds=(3, 4, 5), people=(2, 3, 1)):
     pafs, hms = zip(*(_render_scene(np.random.RandomState(seed), n_people=n,
                                     hw=HW)
@@ -197,9 +222,13 @@ def test_batch_slices_equal_single_frames():
 
 _SHIM = r"""
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cstdint>
+#include <cstdlib>
+#include <cstring>
 #include <math.h>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -208,6 +237,8 @@ _SHIM = r"""
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
 struct uint3_ { unsigned x, y, z; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) longlong2 { long long x, y; };
 inline thread_local uint3_ threadIdx, blockIdx;
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
@@ -223,6 +254,68 @@ inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
 inline thread_local std::barrier<>* host_barrier;
 inline thread_local int* host_smem;
 inline void __syncthreads() { host_barrier->arrive_and_wait(); }
+// A warp: its 32 lanes share a barrier and two exchange buffers of one
+// 64-bit slot a lane.  Every warp function below is a full-warp one (the
+// kernels pass 0xffffffff): each lane writes its slot of the buffer this
+// call uses, all wait, each reads.  Calls alternate buffers: a lane
+// rewrites one only after passing the next call's barrier, which every
+// lane reaches after its read.
+struct HostWarp {
+  std::barrier<> bar{32};
+  uint64_t slot[2][32];
+};
+inline thread_local HostWarp* host_warp;
+inline thread_local unsigned host_lane, host_parity;
+inline uint64_t* host_exchange(uint64_t w) {
+  uint64_t* slots = host_warp->slot[host_parity];
+  host_parity ^= 1u;
+  slots[host_lane] = w;
+  host_warp->bar.arrive_and_wait();
+  return slots;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  host_warp->bar.arrive_and_wait();
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) <= 8, "one slot a lane");
+  uint64_t w = 0;
+  std::memcpy(&w, &v, sizeof(T));
+  w = host_exchange(w)[(host_lane ^ lane_mask) & 31u];
+  T out;
+  std::memcpy(&out, &w, sizeof(T));
+  return out;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const uint64_t* slots = host_exchange(pred != 0);
+  unsigned m = 0u;
+  for (unsigned l = 0; l < 32; ++l) m |= (unsigned)(slots[l] != 0) << l;
+  return m;
+}
+inline int __any_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) != 0u;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  const uint64_t* slots = host_exchange(v);
+  unsigned m = 0u;
+  for (unsigned l = 0; l < 32; ++l) m = std::max(m, (unsigned)slots[l]);
+  return m;
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  const uint64_t* slots = host_exchange(v);
+  unsigned m = 0xffffffffu;
+  for (unsigned l = 0; l < 32; ++l) m = std::min(m, (unsigned)slots[l]);
+  return m;
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  return u;
+}
+using std::max;
+using std::min;
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 template <class K, class... A>
 void host_launch(K kernel, int grid, int threads, int smem_bytes,
                  cudaStream_t, A... args) {
@@ -230,6 +323,9 @@ void host_launch(K kernel, int grid, int threads, int smem_bytes,
     // NaN bit patterns, so a read of an unwritten word shows
     std::vector<int> smem(smem_bytes / 4 + 1, 0x7fc00001);
     std::barrier<> bar(threads);
+    std::vector<std::unique_ptr<HostWarp>> warps;
+    for (int w = 0; w < (threads + 31) / 32; ++w)
+      warps.push_back(std::make_unique<HostWarp>());
     std::vector<std::thread> block;
     for (int t = 0; t < threads; ++t)
       block.emplace_back([&, t] {
@@ -237,6 +333,9 @@ void host_launch(K kernel, int grid, int threads, int smem_bytes,
         blockIdx = {(unsigned)bx, 0, 0};
         host_barrier = &bar;
         host_smem = smem.data();
+        host_warp = warps[t / 32].get();
+        host_lane = (unsigned)t % 32u;
+        host_parity = 0u;
         kernel(args...);
       });
     for (auto& th : block) th.join();
@@ -281,17 +380,30 @@ def host_libs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("frames", [1, 3])
-@pytest.mark.parametrize("name", MATCH_CASES)
+@pytest.mark.parametrize("name", MATCH_CASES + ("crowd", "ties_k48",
+                                                "ties_k96"))
 def test_greedy_match_kernel_source_matches_plain_on_host(host_libs, name,
                                                           frames):
+    """The planted cases; the crowd: a full K = 32 limb on every limb (32
+    steps a block), with a NaN on a valid candidate of one limb (taken
+    first, so that limb stops at once) and a limb of signed zeros; ties at
+    K = 48 and 96 (two and four 32-column words a row), four limbs a
+    frame."""
     module, lib = host_libs["greedy_match"]
-    k = 32 if name == "full_limb" else 8
-    args = [_t(x) for x in _match_case(name, np.random.RandomState(2),
-                                       frames=frames, k=k)]
-    if name == "full_limb":     # 32 steps a block: four limbs a frame
+    k = {"full_limb": 32, "crowd": 32, "ties_k48": 48, "ties_k96": 96
+         }.get(name, 8)
+    args = [_t(x) for x in _match_case(
+        {"crowd": "full_limb"}.get(name, name.split("_k")[0]),
+        np.random.RandomState(2), frames=frames, k=k)]
+    if name in ("full_limb", "ties_k48", "ties_k96"):  # four limbs a frame
         args = [x[:, :4] for x in args]
     if name == "ties":
         args[0][0, 3, 1, 2] = float("nan")    # torch.argmax's NaN is first
+    if name == "crowd":
+        args[0][0, 5, 7, 9] = float("nan")
+        # a limb of signed zeros: every step a tie of -0 and +0, taken in
+        # flat order as torch.argmax does
+        args[0][0, 7] = torch.where(torch.rand(k, k) < 0.5, -0.0, 0.0)
     got = module._launch(lib, *args, None)
     ref = tpaf.greedy_match(*args)
     for g, r in zip(got, ref):
@@ -299,11 +411,21 @@ def test_greedy_match_kernel_source_matches_plain_on_host(host_libs, name,
 
 
 @pytest.mark.parametrize("frames", [1, 3])
-@pytest.mark.parametrize("seed,cap", FOLD_CASES)
+@pytest.mark.parametrize("seed,cap", FOLD_CASES + (
+    ("crowd", 64), ("crowd", 128), ("wide", 40), ("wide", 64)))
 def test_group_fold_kernel_source_matches_plain_on_host(host_libs, seed, cap,
                                                         frames):
+    """The planted cases; the crowd (608 steps a frame) at the default
+    table and ``chip_smoke.py``'s; wide tables (12 slots: over 32 rows
+    created, so the match test reads a second 32-row chunk), saturated at
+    S = 40."""
     module, lib = host_libs["group_fold"]
-    a, b, s, v, p = (_t(x[:frames]) for x in _fold_case(seed))
+    tables = {"crowd": lambda: crowd_tables(np.random.RandomState(8),
+                                            (frames,)),
+              "wide": lambda: fold_tables(np.random.RandomState(3),
+                                          (frames,), k=WIDE_SLOTS)
+              }.get(seed, lambda: _fold_case(seed))()
+    a, b, s, v, p = (_t(x[:frames]) for x in tables)
     cfg = _fold_cfg(cap)
     thresh = (cfg.n_subset_limbs_thresh, cfg.subset_score_thresh)
     got = module._launch(lib, *module._limbs(NUM_LIMBS), a, b, s, v, p, cap,
@@ -311,6 +433,9 @@ def test_group_fold_kernel_source_matches_plain_on_host(host_libs, seed, cap,
     ref = tgroup.fold_connections(a, b, s, v, p, cap, *thresh)
     for g, r, field in zip(got, ref, ref._fields):
         assert g.dtype == r.dtype and torch.equal(g, r), field
+    if seed == "wide":
+        created = (ref.joint_slot >= 0).any(-1).sum(-1) + ref.spawns_suppressed
+        assert int(created.max()) > 32
 
 
 def test_group_fold_kernel_source_on_scenes_matches_plain(host_libs):

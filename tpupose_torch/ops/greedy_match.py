@@ -5,7 +5,7 @@ Replaces the JAX package's device loop ``tpupose/ops/paf.py::greedy_match``
 frames; no Pallas kernel).  ``greedy_match`` routes by the device of its
 input only: a CPU tensor takes the plain version, ``ops/paf.py::
 greedy_match``; a CUDA tensor launches ``tpupose_torch/csrc/
-greedy_match.cu`` (one block per frame and limb) or raises.  There is no
+greedy_match.cu`` (one warp per frame and limb) or raises.  There is no
 fallback, and no host sync: the kernel loops on the device.
 
 The kernel is built at its first launch by ``ops/_cuda_build.py``.
@@ -21,6 +21,8 @@ import math
 import torch
 
 from tpupose_torch.ops import _cuda_build
+
+MAX_K = 128  # the kernel keeps a row's and a column's masks in 4 words
 
 
 def greedy_match(score: torch.Tensor, valid: torch.Tensor,
@@ -59,6 +61,9 @@ def greedy_match(score: torch.Tensor, valid: torch.Tensor,
     for t in (valid, n_a, n_b):
         if t.device != dev:
             raise ValueError(f"greedy_match: inputs on {t.device} and {dev}")
+    if k > MAX_K:
+        raise ValueError(f"greedy_match: K = {k} candidates a side; the "
+                         f"kernel takes K <= {MAX_K}")
     with torch.cuda.device(dev):
         out = _launch(_library(), score, valid, n_a, n_b,
                       torch.cuda.current_stream().cuda_stream)

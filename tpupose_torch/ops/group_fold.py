@@ -6,7 +6,7 @@ connections, ``vmap``ped over frames; no Pallas kernel).  ``group_fold``
 routes by the device of its inputs only: CPU tensors take the plain
 version, ``ops/grouping.py::fold_connections`` (which reads its trip count
 to the host); CUDA tensors launch ``tpupose_torch/csrc/group_fold.cu``
-(one block per frame) or raise.  There is no fallback, and no host sync:
+(one warp per frame) or raise.  There is no fallback, and no host sync:
 the kernel walks the connections on the device.
 
 The kernel is built at its first launch by ``ops/_cuda_build.py``.
@@ -27,6 +27,18 @@ from tpupose_torch.ops import _cuda_build
 
 MAX_LIMBS = 64  # GROUP_FOLD_MAX_LIMBS in csrc/group_fold.cu
 MAX_SMEM_BYTES = 227 * 1024
+MAX_SUBSETS = 1024  # a lane keeps its rows' active flags in one word
+
+
+def smem_bytes(n_limbs: int, k: int, s: int, kp: int) -> int:
+    """Shared memory of one block (``smem_bytes`` in ``csrc/
+    group_fold.cu``): the (J, KP) peak scores, the table by column at
+    stride ``S | 1``, score and count, per connection its flag byte, its
+    place in the listed order and its six staged fields, and 32 words of
+    slack."""
+    lk = n_limbs * k
+    return 4 * ((NUM_JOINTS * kp + 3) // 4 * 4 + NUM_JOINTS * (s | 1)
+                + 2 * s + (lk + 3) // 4 + 7 * lk + 32)
 
 
 def group_fold(a_slot: torch.Tensor, b_slot: torch.Tensor,
@@ -79,12 +91,11 @@ def group_fold(a_slot: torch.Tensor, b_slot: torch.Tensor,
         raise ValueError(f"group_fold: {n_limbs} limbs; the topology has "
                          f"{len(LIMBS_FROM)}")
     s = int(max_subsets)
-    threads = 32
-    while threads < s and threads < 1024:
-        threads *= 2
-    smem = 4 * (s * NUM_JOINTS + 3 * s + n_limbs * k + n_limbs
-                + 3 * threads + 4)
-    if s <= 0 or smem > MAX_SMEM_BYTES:
+    smem = smem_bytes(n_limbs, k, s, peak_score.shape[-1])
+    if not 0 < s <= MAX_SUBSETS:
+        raise ValueError(f"group_fold: max_subsets {s}; the kernel takes "
+                         f"1 to {MAX_SUBSETS}")
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"group_fold: max_subsets {s} with {n_limbs} x {k} "
                          f"connections needs {smem} bytes of shared memory; "
                          f"a block has {MAX_SMEM_BYTES}")
