@@ -1,0 +1,6 @@
+"""launches_per_frame.busy: launches_per_frame in a cell whose end-to-end
+time is gpu_busy_ms, which it moves there."""
+
+from posebench.core import registry
+
+read = registry.split_reader(__file__).read
