@@ -21,6 +21,12 @@ scale 1/256).
 ``_batch_forward_fn`` and ``_tail_fn`` are the two programs a crop bundle
 exports (``tpupose_torch/serving.py::save_crop_bundle``); the live
 ``submit_crops`` runs the same bodies with the detector's own weights.
+
+A request's stages run in ``utils.profiling.annotate`` spans:
+``crop.resize`` (``prepare_crops``), ``crop.upload`` and ``crop.forward``
+(``forward_maps``), ``crop.postprocess`` (every crop's tail and their
+stack, one span) and ``crop.fetch`` (``collect_crops``'s copy, its wait
+and the keypoint lists).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from tpupose_torch.ops.resize import resize_chainer, resize_u8_linear
 from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
                                  model_params, qtree_to_device, quant_apply,
                                  quantize, resolve_conv7_impl)
+from tpupose_torch.utils.profiling import annotate
 from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
                                    warn_on_load_report)
 
@@ -160,10 +167,11 @@ class CropKeypointDetector:
         """(B, S, S, 3) uint8 network inputs -> every stage's heatmaps
         (stages, B, S/8, S/8, C) on the detector's device: the int8 forward
         once quantized, else the float32 model."""
-        with float32_numerics(), torch.no_grad():
-            x = preprocess_crops_u8(torch.from_numpy(
-                np.ascontiguousarray(imgs_u8)).to(self.device))
-            return self._net(x)
+        with annotate("crop.upload"):
+            imgs = torch.from_numpy(
+                np.ascontiguousarray(imgs_u8)).to(self.device)
+        with annotate("crop.forward"), float32_numerics(), torch.no_grad():
+            return self._net(preprocess_crops_u8(imgs))
 
     def _batch_forward_fn(self):
         """The crop forward program: ``(weights, imgs_u8)``, (B, S, S, 3)
@@ -219,10 +227,12 @@ class CropKeypointDetector:
         if not crops:
             return []
         flips = list(flips) if flips else [False] * len(crops)
-        heatmaps = self.forward_maps(self.prepare_crops(crops, flips))[-1]
-        return self.submit_tails(heatmaps,
-                                 [np.asarray(c).shape[:2] for c in crops],
-                                 flips)
+        with annotate("crop.resize"):
+            imgs = self.prepare_crops(crops, flips)
+        heatmaps = self.forward_maps(imgs)[-1]
+        with annotate("crop.postprocess"):
+            return self.submit_tails(
+                heatmaps, [np.asarray(c).shape[:2] for c in crops], flips)
 
     def submit_tails(self, heatmaps: torch.Tensor,
                      crop_hws: Sequence[Tuple[int, int]],
@@ -243,9 +253,10 @@ class CropKeypointDetector:
         if not pending:
             return []
         rows, scales = pending
-        rows = rows.cpu().numpy()
-        return [self._to_keypoints(r, scale) for r, scale in zip(rows,
-                                                                  scales)]
+        with annotate("crop.fetch"):
+            rows = rows.cpu().numpy()
+            return [self._to_keypoints(r, scale)
+                    for r, scale in zip(rows, scales)]
 
     @staticmethod
     def _to_keypoints(row: np.ndarray, scale=(1.0, 1.0)):

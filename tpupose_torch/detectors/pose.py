@@ -34,7 +34,13 @@ everything around it stays.
 
 Each frame's work runs inside ``utils.profiling.annotate`` spans with the
 JAX package's program names (``pose_fast_HxW``, ``poseq_fast_HxW``,
-``pose_scale_HxW``, ``pose_avg_postprocess_HxW``).
+``pose_scale_HxW``, ``pose_avg_postprocess_HxW``).  Stage spans tile a
+fast request: ``pose.resize`` (geometry and host resize) before the
+program span, ``pose.upload``, ``pose.forward`` and ``pose.postprocess``
+inside it, ``pose.fetch`` (the device-to-host copy, its wait and the
+emit) after it; the precise path has ``pose.postprocess`` and
+``pose.fetch``.  The spans wrap calls into the exported bodies, never
+code inside them.
 
 ``mesh=`` (``tpupose_torch/parallel``): ``detect_batch`` on a (data,
 spatial) mesh of ranks, each calling it with the same frames.  Each data
@@ -372,9 +378,10 @@ class PoseDetector:
     def _maps(self, imgs_u8: np.ndarray, map_hw: Tuple[int, int]):
         """(B, H, W, 3) uint8 network-size frames -> channel-first
         (B, 38, h, w) PAFs and (B, 19, h, w) heatmaps at ``map_hw``."""
-        with float32_numerics(), torch.no_grad():
-            return self._fast_maps(None, to_device(imgs_u8, self.device),
-                                   map_hw)
+        with annotate("pose.upload"):
+            imgs = to_device(imgs_u8, self.device)
+        with annotate("pose.forward"), float32_numerics(), torch.no_grad():
+            return self._fast_maps(None, imgs, map_hw)
 
     def _fast_maps(self, weights, imgs_u8: torch.Tensor,
                    map_hw: Tuple[int, int]):
@@ -637,16 +644,20 @@ class PoseDetector:
             def maps():
                 return self._average(paf_list, hm_list)
         else:
-            (in_h, in_w), (map_h, map_w) = self._geometry(orig_h, orig_w)
-            resized = np.stack([resize_u8_linear(img, (in_w, in_h))
-                                for img in imgs])
+            with annotate("pose.resize"):
+                (in_h, in_w), (map_h, map_w) = self._geometry(orig_h,
+                                                              orig_w)
+                resized = np.stack([resize_u8_linear(img, (in_w, in_h))
+                                    for img in imgs])
             name = f"{self._prefix_for((in_h, in_w))}_fast_{in_h}x{in_w}"
 
             def maps():
                 return self._maps(resized, (map_h, map_w))
         with annotate(name):
-            paf, hm = maps()
-            out = self._postprocess(paf, hm) if postprocess else (paf, hm)
+            out = maps()
+            if postprocess:
+                with annotate("pose.postprocess"):
+                    out = self._postprocess(*out)
         return out, (orig_w / map_w, orig_h / map_h)
 
     def _postprocess(self, paf: torch.Tensor, hm: torch.Tensor) -> PoseResult:
@@ -679,7 +690,8 @@ class PoseDetector:
     def collect(self, pending):
         """Copy a ``submit`` handle's result to the host; (poses, scores)."""
         result, scale_x, scale_y = pending
-        return self._emit(result, scale_x, scale_y)
+        with annotate("pose.fetch"):
+            return self._emit(result, scale_x, scale_y)
 
     def detect_precise(self, orig_img: np.ndarray):
         """The precise pyramid on one frame, whatever the detector's mode
@@ -697,9 +709,10 @@ class PoseDetector:
         divide ``B`` (else ``ValueError``)."""
         result, (scale_x, scale_y) = self._run_batch(
             np.asarray(imgs), postprocess=True)
-        (host,) = results_to_host([result])
-        out = [self._emit(PoseResult(*(f[j] for f in host)), scale_x,
-                          scale_y) for j in range(len(host.valid))]
+        with annotate("pose.fetch"):
+            (host,) = results_to_host([result])
+            out = [self._emit(PoseResult(*(f[j] for f in host)), scale_x,
+                              scale_y) for j in range(len(host.valid))]
         if self.mesh is None:
             return out
         return all_gather_list(out, self.mesh.data_group)

@@ -12,7 +12,11 @@ The detectors run their per-frame work inside ``annotate`` spans named as
 the JAX package names its programs: ``pose_fast_HxW`` and
 ``poseq_fast_HxW`` (network input size), ``pose_scale_HxW`` (a pyramid
 scale's resized size) and ``pose_avg_postprocess_HxW`` (postprocess
-resolution).
+resolution).  Stage spans tile a request: ``pose.resize``, then
+``pose.upload``, ``pose.forward`` and ``pose.postprocess`` inside the
+program span, then ``pose.fetch``; the crop detectors' ``crop.resize``,
+``crop.upload``, ``crop.forward``, ``crop.postprocess`` and
+``crop.fetch``.  No span opens inside a body that ``serving.py`` exports.
 """
 
 from __future__ import annotations
