@@ -5,12 +5,13 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. Print the card (``nvidia-smi`` name and power limit) and build the six
+1. Print the card (``nvidia-smi`` name and power limit) and build the seven
    CUDA kernels from ``tpupose_torch/csrc/`` (``blur_nms.cu``,
    ``conv7_s8.cu``, ``conv_s8.cu``, ``requant.cu``, ``greedy_match.cu``,
-   ``group_fold.cu``), one ``nvcc`` per source, in parallel, beside
-   ``nvcc -Xptxas -v`` on all but ``requant.cu`` (registers, shared memory
-   and spills of each of their kernels, printed).
+   ``group_fold.cu``, ``resize_u8.cu``), one ``nvcc`` per source, in
+   parallel, beside ``nvcc -Xptxas -v`` on all but ``requant.cu``
+   (registers, shared memory and spills of each of their kernels,
+   printed).
 2. Hold the blur+NMS kernel against its plain PyTorch version on the card at
    the fast path's map shape (18, 320, 432), the precise path's
    (18, 480, 640), a planted-peak map (18, 46, 62), a map smaller than the
@@ -97,7 +98,8 @@ counters; greedy_match and group_fold on planted tables of each shape).
    fixed boxes to 2 faces, 2 left and 2 right hands) through
    ``detect_batch``, f32, then int8 after ``quantize`` on those crops.
    Checks 25 conv7, 21 conv_s8 and no requant launches per int8 crop
-   forward, conv7 at groups (71, 128) and (22, 128), every kernel at every
+   forward, one ``resize_u8`` launch per request of up to 64 crops,
+   conv7 at groups (71, 128) and (22, 128), every kernel at every
    shape the path gave it, and, on the fixed boxes' 2 faces and a left
    and a right hand (the random poses cut crops of 550-1700 px, too large
    for the CPU's tails), the card's maps against a CPU twin's (f32 within
@@ -110,6 +112,9 @@ counters; greedy_match and group_fold on planted tables of each shape).
    and 32: the run-time-tap kernel) bit-equal, radius 20 timed beside 10;
    ``greedy_match``'s planted ties, card against CPU; 1x1, 16x9 and 9x16
    frames give (0, 18, 3) tables on the fast, precise and int8 paths.
+   The crop resize kernel (``check_resize_u8``) bit-equal to its plain
+   version and to numpy's ``resize_u8_linear``, and timed at the hand
+   cell's request beside its bound, its plain version and numpy.
    Phase 6 also checks ``detect_precise`` against ``__call__``.  Prints
    the crop forwards' times (CUDA events, B = 1 and 8) and
    ``detect_batch``'s host time per crop.
@@ -1002,6 +1007,7 @@ def check_path_shapes(label, cfg, shapes):
     from tpupose_torch.ops import group_fold as gf
     from tpupose_torch.ops import paf
     from tpupose_torch.ops import requant as rq
+    from tpupose_torch.ops import resize as rsz
     from tpupose_torch.ops.grouping import fold_connections
 
     rng = np.random.RandomState(1)
@@ -1047,7 +1053,20 @@ def check_path_shapes(label, cfg, shapes):
         if not torch.equal(got, ref):
             raise AssertionError(f"{label}: requant disagrees at {shape} "
                                  f"groups {groups} relu {relu} lo {lo}")
+    resizes = sorted(shapes.get("resize_u8_linear", {}))
+    for out_h, out_w, items in resizes:
+        crops = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+                 for h, w, _ in items]
+        packed, desc = rsz.pack_u8_images(crops, [m for _, _, m in items])
+        x = packed.cuda()
+        if not torch.equal(
+                rsz.resize_u8_linear_batch(x, desc, (out_w, out_h)),
+                rsz.resize_u8_linear_batch_plain(x, desc, (out_w, out_h))):
+            raise AssertionError(f"{label}: resize_u8 disagrees on "
+                                 f"{len(items)} images {items[:4]}... to "
+                                 f"{out_h}x{out_w}")
     torch.cuda.synchronize()
+    sides = [s for *_, items in resizes for h, w, _ in items for s in (h, w)]
     print(f"{label}: every kernel bit-equal to its plain version at every "
           f"shape the path gave it: blur_nms "
           f"{sorted(shapes['blur_nms'])}, conv7_s8 "
@@ -1056,7 +1075,11 @@ def check_path_shapes(label, cfg, shapes):
           f"{sorted(shapes.get('greedy_match', {}))}, group_fold "
           f"{sorted(shapes.get('group_fold', {}))}, requant_epilogue "
           f"{len(shapes['requant_epilogue'])} shapes (largest "
-          f"{max(shapes['requant_epilogue'], default=None, key=_numel)})")
+          f"{max(shapes['requant_epilogue'], default=None, key=_numel)}), "
+          f"resize_u8_linear {len(resizes)} batches of "
+          f"{sum(len(items) for *_, items in resizes)} images (sides "
+          f"{min(sides, default=None)}-{max(sides, default=None)}, to "
+          f"{sorted({(h, w) for h, w, _ in resizes})})")
 
 
 def _numel(requant_key):
@@ -1280,16 +1303,20 @@ def _wrappers():
     from tpupose_torch.ops import greedy_match as gm
     from tpupose_torch.ops import group_fold as gf
     from tpupose_torch.ops import requant as rq
+    from tpupose_torch.ops import resize as rs
 
     return {"blur_nms": bn.blur_nms, "conv7_s8": c7.conv7_s8,
             "conv_s8": cs.conv_s8, "requant_epilogue": rq.requant_epilogue,
-            "greedy_match": gm.greedy_match, "group_fold": gf.group_fold}
+            "greedy_match": gm.greedy_match, "group_fold": gf.group_fold,
+            "resize_u8_linear": rs.resize_u8_linear_batch}
 
 
 def _reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
         fn.shapes.clear()
+        if hasattr(fn, "images"):
+            fn.images = 0
 
 
 def _read_counts():
@@ -1776,6 +1803,7 @@ def run_crop_nets(f32_det, cfg, frames):
     from tpupose_torch.detectors import FaceDetector, HandDetector
     from tpupose_torch.detectors.crop_keypoints import preprocess_crops_u8
     from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.ops import resize as rs
     from tpupose_torch.utils.calibrate import calibrate_crop_output_conv
 
     t_phase = t0 = time.perf_counter()
@@ -1812,11 +1840,21 @@ def run_crop_nets(f32_det, cfg, frames):
     if (face.conv7_impl, hand.conv7_impl) != ("kernel", "kernel"):
         raise AssertionError("crop quantize() did not take the kernel route")
     before = _read_counts()
+    images0 = rs.resize_u8_linear_batch.images
     int8_face = face.detect_batch(faces)
     after_face = _read_counts()
     int8_hand = hand.detect_batch(hand_imgs, sides)
     torch.cuda.synchronize()
     counts = _read_counts()
+    resized = (counts["resize_u8_linear"] - before["resize_u8_linear"],
+               rs.resize_u8_linear_batch.images - images0)
+    want = (-(-len(faces) // rs.MAX_ITEMS) - (-len(hands) // rs.MAX_ITEMS),
+            len(faces) + len(hands))
+    print(f"crop path: resize_u8 launches and images over one int8 face "
+          f"and one hand request {resized} (want {want})")
+    if resized != want:
+        raise AssertionError("the crop requests did not resize on the card "
+                             "once a request")
     shapes = _read_shapes()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     per_face = {k: after_face[k] - before[k] for k in counts}
@@ -1915,6 +1953,102 @@ def _f32_view(det):
     view._quant_forward = None
     view.quantized = False
     return view
+
+
+def resize_u8_bound(descriptors, out_h, out_w):
+    """The crop resize's bound: each packed input byte read once and each
+    output byte written once, over the memory rate."""
+    n_bytes = sum(h * w * 3 for _, h, w, _ in descriptors) \
+        + len(descriptors) * out_h * out_w * 3
+    return _bound(n_bytes, 0, INT8_OPS_PER_S)
+
+
+def check_resize_u8():
+    """Phase 8, the crop resize kernel (``csrc/resize_u8.cu``): bit-equal
+    to its plain version on the card and to numpy's ``resize_u8_linear`` on
+    sides 1-500 to 368, non-square and mirrored crops, a ragged output and
+    a batch of 131 crops (3 launches).  At the hand cell's request (8 crops
+    of 64-192 px, 4 mirrored, to 368x368): its time from CUDA-graph
+    replays and the plain version's by CUDA events, beside its bound,
+    numpy's host time for the same crops, the wrapper's host enqueue time
+    and the host times of packing into pinned memory, of packing and
+    copying, and of ``to_device``'s staging of a pageable pack.  Returns its
+    record, with the largest |kernel - plain| and |kernel - numpy| over the
+    checked batches as its error."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.ops import resize as rs
+    from tpupose_torch.ops.upload import to_device
+
+    rng = np.random.RandomState(16)
+
+    def images(hws):
+        return [rng.randint(0, 256, (int(h), int(w), 3)).astype(np.uint8)
+                for h, w in hws]
+
+    cases = [(images([(s, s)]), [m], (368, 368))
+             for s in (1, 2, 64, 100, 157, 192, 368, 500) for m in (0, 1)]
+    cases += [(images([(37, 120), (120, 37), (1, 200), (200, 1)]),
+               [1, 0, 1, 0], (368, 368)),
+              (images(rng.randint(1, 200, (6, 2))), [0, 1] * 3, (45, 37)),
+              (images(rng.randint(1, 90, (131, 2))),
+               list(rng.randint(0, 2, 131)), (64, 48))]
+    err = 0
+    for crops, mirrors, size in cases:
+        packed, desc = rs.pack_u8_images(crops, mirrors)
+        x = packed.cuda()
+        got = rs.resize_u8_linear_batch(x, desc, size).int()
+        plain = rs.resize_u8_linear_batch_plain(x, desc, size).int()
+        want = torch.from_numpy(np.stack([
+            rs.resize_u8_linear(c[:, ::-1] if m else c, size)
+            for c, m in zip(crops, mirrors)])).cuda().int()
+        case_err = max(int((got - plain).abs().max()),
+                       int((got - want).abs().max()))
+        if case_err:
+            raise AssertionError(f"resize_u8 disagrees on {len(crops)} "
+                                 f"crops to {size} by {case_err}")
+        err = max(err, case_err)
+    print(f"resize_u8: bit-equal to its plain version and to numpy on "
+          f"{len(cases)} batches ({sum(len(c) for c, _, _ in cases)} crops; "
+          f"131 crops in {-(-131 // rs.MAX_ITEMS)} launches), largest "
+          f"difference {err}")
+
+    sides = rng.randint(64, 193, 8)
+    crops = images([(s, s) for s in sides])
+    mirrors = [i % 2 == 0 for i in range(8)]
+    packed, desc = rs.pack_u8_images(crops, mirrors)
+    x = packed.cuda()
+    # the plain version copies its taps from the host, which a CUDA graph
+    # cannot capture: CUDA events over eager calls
+    times = {"kernel": _graph_ms(
+        lambda: rs.resize_u8_linear_batch(x, desc, (368, 368)), 20),
+        "plain": _cuda_ms(lambda: rs.resize_u8_linear_batch_plain(
+            x, desc, (368, 368)), 5)}
+    bound, bound_by = resize_u8_bound(desc, 368, 368)
+    numpy_ms = _host_ms(lambda: np.stack([
+        rs.resize_u8_linear(c[:, ::-1] if m else c, (368, 368))
+        for c, m in zip(crops, mirrors)]), 5)
+    enqueue_ms = _enqueue_ms(
+        lambda: rs.resize_u8_linear_batch(x, desc, (368, 368)), 200)
+    # submit_crops's upload: packed into pinned memory, copied async;
+    # beside it, to_device's pin_memory() staging of a pageable pack
+    pack_ms = _host_ms(
+        lambda: rs.pack_u8_images(crops, mirrors, pin_memory=True), 20)
+    upload_ms = _host_ms(lambda: rs.pack_u8_images(
+        crops, mirrors, pin_memory=True)[0].to("cuda", non_blocking=True),
+        20)
+    staged_ms = _host_ms(lambda: to_device(packed, "cuda"), 20)
+    print(f"resize_u8 hand request (sides {sorted(int(s) for s in sides)}, "
+          f"4 mirrored, to 368x368; {packed.numel()} B in, "
+          f"{8 * 368 * 368 * 3} B out): kernel {times['kernel']!r} ms, plain "
+          f"{times['plain']!r} ms (kernel: CUDA-graph replays of 20 calls; "
+          f"plain: CUDA events over 5 eager calls), bound {bound!r} "
+          f"ms ({bound_by}); numpy on the host {numpy_ms!r} ms; the "
+          f"wrapper's host enqueue {enqueue_ms!r} ms; on the host, packing "
+          f"into pinned memory {pack_ms!r} ms, packing and copying "
+          f"{upload_ms!r} ms, to_device of a pageable pack {staged_ms!r} ms")
+    return err, times["kernel"], times["plain"], (bound, bound_by)
 
 
 def check_crop_kernels(cfg):
@@ -3802,9 +3936,10 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = {name: _start_resource_report(name)
                for name in ("blur_nms", "conv7_s8", "conv_s8",
-                            "greedy_match", "group_fold")}
+                            "greedy_match", "group_fold", "resize_u8")}
     libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "conv_s8",
-                                  "requant", "greedy_match", "group_fold"])
+                                  "requant", "greedy_match", "group_fold",
+                                  "resize_u8"])
     print(f"built {sorted(libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
@@ -3833,6 +3968,7 @@ def main() -> int:
     crop_counts, face = run_crop_nets(f32_det, cfg, frames)
     t1 = time.perf_counter()
     check_crop_kernels(cfg)
+    resize_record = check_resize_u8()
     t2 = time.perf_counter()
     check_tiny_frames(cfg, frames)
     print(f"phase 8: crop nets {t1 - t0:.2f} s, kernels {t2 - t1:.2f} s, "
@@ -3878,6 +4014,10 @@ def main() -> int:
          "tpupose/ops/paf.py:102", post_records["greedy_match"][0]),
         ("group_fold", "tpupose_torch/csrc/group_fold.cu",
          "tpupose/ops/grouping.py:82", post_records["group_fold"][0]),
+        # no TPU kernel: the JAX package resizes crops with cv2 on the host
+        ("resize_u8_linear", "tpupose_torch/csrc/resize_u8.cu",
+         "none (host cv2.resize, tpupose/detectors/crop_keypoints.py:214)",
+         resize_record),
     ]
     fusions = {"conv_s8": "requant_epilogue fused into an s8 implicit GEMM "
                           "for the 1x1 and 3x3 int8 layers (kernel route)",

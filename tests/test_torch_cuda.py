@@ -516,6 +516,114 @@ def test_crop_detector_on_the_card_matches_the_cpu(cuda_device, arch):
     assert torch.equal(got.cpu(), ref)
 
 
+RESIZE_CASES = [(s, s) for s in (1, 2, 64, 100, 157, 192, 368, 500)] + [
+    (37, 120), (120, 37), (1, 200), (200, 1), (480, 640)]
+
+
+def _resize_images(hws, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in hws]
+
+
+def _resize_on_card(images, mirrors, size, device):
+    from tpupose_torch.ops import resize as rs
+
+    packed, descriptors = rs.pack_u8_images(images, mirrors, pin_memory=True)
+    assert packed.is_pinned()
+    packed = packed.to(device, non_blocking=True)
+    before = (rs.resize_u8_linear_batch.launches,
+              rs.resize_u8_linear_batch.images)
+    got = rs.resize_u8_linear_batch(packed, descriptors, size)
+    plain = rs.resize_u8_linear_batch_plain(packed, descriptors, size)
+    torch.cuda.synchronize()
+    want = np.stack([rs.resize_u8_linear(img[:, ::-1] if m else img, size)
+                     for img, m in zip(images, mirrors)])
+    assert got.device == packed.device and plain.device == packed.device
+    assert torch.equal(got, plain)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    return (rs.resize_u8_linear_batch.launches - before[0],
+            rs.resize_u8_linear_batch.images - before[1])
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+@pytest.mark.parametrize("hw", RESIZE_CASES)
+def test_resize_u8_kernel_equals_plain_and_numpy(cuda_device, hw, mirror):
+    assert _resize_on_card(_resize_images([hw], sum(hw)), [mirror],
+                           (368, 368), cuda_device) == (1, 1)
+
+
+@pytest.mark.parametrize("size", [(368, 368), (496, 368), (45, 37)])
+def test_resize_u8_kernel_on_a_hand_request(cuda_device, size):
+    """The hand cell's request: 8 crops of 64-192 px, 4 mirrored, in one
+    launch; also to a frame-sized and a ragged output."""
+    sides = np.random.RandomState(11).randint(64, 193, 8)
+    images = _resize_images([(int(s), int(s)) for s in sides], 12)
+    assert _resize_on_card(images, [i % 2 == 0 for i in range(8)], size,
+                           cuda_device) == (1, 8)
+
+
+def test_resize_u8_kernel_takes_more_items_than_a_launch_holds(
+        cuda_device):
+    from tpupose_torch.ops.resize import MAX_ITEMS
+
+    n = 2 * MAX_ITEMS + 3
+    rng = np.random.RandomState(13)
+    images = _resize_images([tuple(hw) for hw in rng.randint(1, 90, (n, 2))],
+                            14)
+    mirrors = [bool(m) for m in rng.randint(0, 2, n)]
+    assert _resize_on_card(images, mirrors, (64, 48), cuda_device) == (3, n)
+
+
+def test_resize_u8_kernel_refuses_what_it_does_not_take(cuda_device):
+    from tpupose_torch.ops import resize as rs
+
+    packed = torch.zeros(12, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="outside"):
+        rs.resize_u8_linear_batch(packed, [(4, 2, 2, False)], (8, 8))
+    with pytest.raises(ValueError, match="uint8"):
+        rs.resize_u8_linear_batch(packed.int(), [(0, 2, 2, False)], (8, 8))
+    with pytest.raises(ValueError, match="size"):
+        rs.resize_u8_linear_batch(packed, [(0, 2, 2, False)],
+                                  (rs.MAX_OUT_W + 1, 8))
+
+
+@pytest.mark.parametrize("arch", ["facenet", "handnet"])
+def test_crop_detector_resizes_on_the_card_once_a_request(cuda_device, arch):
+    """``submit_crops`` uploads the raw crops and resizes them in one
+    launch; quantized, the card's keypoints equal a CPU twin's on the same
+    int8 tree (its inputs resized by the plain version)."""
+    import copy
+
+    from tpupose_torch import quant as tq
+    from tpupose_torch.ops import resize as rs
+
+    _, card, crops = _crop_detector_pair(arch, cuda_device)
+    crops = (crops * 3)[:8]
+    flips = [i % 2 == 1 for i in range(8)]
+    card.quantize(crops[:3])
+    twin = copy.copy(card)
+    twin.device = torch.device("cpu")
+    twin._quant_forward = tq.make_quant_apply(
+        card.quant_static, tq.qtree_to_device(card.qtree, card.quant_static,
+                                              "cpu"))
+    before = (rs.resize_u8_linear_batch.launches,
+              rs.resize_u8_linear_batch.images)
+    pending = card.submit_crops(crops, flips)
+    torch.cuda.synchronize()
+    assert (rs.resize_u8_linear_batch.launches - before[0],
+            rs.resize_u8_linear_batch.images - before[1]) == (1, 8)
+    got = card.collect_crops(pending)
+    ref = twin.detect_crops(crops, flips)
+    assert rs.resize_u8_linear_batch.launches - before[0] == 1
+    assert any(k is not None for crop in ref for k in crop)
+    for g, r in zip(got, ref):
+        for gk, rk in zip(g, r):
+            assert (gk is None) == (rk is None)
+            if rk is not None:
+                assert gk[:2] == rk[:2]
+                assert abs(gk[2] - rk[2]) <= 1e-5 * max(abs(rk[2]), 1.0)
+
+
 def _tiny_frames():
     return [np.zeros(s, np.uint8) for s in ((1, 1, 3), (16, 9, 3),
                                             (9, 16, 3))]

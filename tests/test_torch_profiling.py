@@ -130,7 +130,7 @@ def test_detector_spans_carry_program_names(detector, tmp_path):
 
 POSE_STAGES = ("pose.resize", "pose.upload", "pose.forward",
                "pose.postprocess", "pose.fetch")
-CROP_STAGES = ("crop.resize", "crop.upload", "crop.forward",
+CROP_STAGES = ("crop.upload", "crop.resize", "crop.forward",
                "crop.postprocess", "crop.fetch")
 
 

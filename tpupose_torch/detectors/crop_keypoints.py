@@ -1,16 +1,17 @@
 """The crop-keypoint engine behind FaceDetector and HandDetector (port of
 ``tpupose/detectors/crop_keypoints.py``).
 
-Per ``detect_crops`` call: each crop (mirrored with a numpy flip where
-asked: the left-hand path) is resized on the host to ``cfg.img_size``
-square with ``resize_u8_linear`` (cv2's uint8 INTER_LINEAR, emulated
-exactly), normalized by **/256 - 0.5** (the crop nets' convention, not the
-pose net's /255), and all crops go through ONE batched forward on the
-detector's device.  Per crop, the last stage's heatmaps are resized
-(align corners) to the crop's size, un-mirrored with ``torch.flip`` where
-the input was, blurred and reduced to one keypoint per channel
-(``global_argmax_keypoints``); every crop's ``(x, y, score, valid)`` comes
-back to the host in one device-to-host copy.
+Per ``detect_crops`` call: the raw crops are packed into one buffer and
+uploaded, then all of them are resized to ``cfg.img_size`` square on the
+detector's device in one ``resize_u8_linear_batch`` (cv2's uint8
+INTER_LINEAR, emulated exactly; a crop is mirrored first where asked: the
+left-hand path), normalized by **/256 - 0.5** (the crop nets' convention,
+not the pose net's /255), and go through ONE batched forward.  Per crop,
+the last stage's heatmaps are resized (align corners) to the crop's size,
+un-mirrored with ``torch.flip`` where the input was, blurred and reduced
+to one keypoint per channel (``global_argmax_keypoints``); every crop's
+``(x, y, score, valid)`` comes back to the host in one device-to-host
+copy.
 
 ``compute_dtype=torch.bfloat16`` runs the net in bfloat16 with its
 parameters stored in it (the JAX package's ``commit_variables(dtype=...)``);
@@ -23,10 +24,11 @@ exports (``tpupose_torch/serving.py::save_crop_bundle``); the live
 ``submit_crops`` runs the same bodies with the detector's own weights.
 
 A request's stages run in ``utils.profiling.annotate`` spans:
-``crop.resize`` (``prepare_crops``), ``crop.upload`` and ``crop.forward``
-(``forward_maps``), ``crop.postprocess`` (every crop's tail and their
-stack, one span) and ``crop.fetch`` (``collect_crops``'s copy, its wait
-and the keypoint lists).
+``crop.upload`` (packing the raw crops and their copy), ``crop.resize``
+(``resize_u8_linear_batch``), ``crop.forward`` (``forward_maps``),
+``crop.postprocess`` (every crop's tail and their stack, one span) and
+``crop.fetch`` (``collect_crops``'s copy, its wait and the keypoint
+lists).
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ from torch.func import functional_call
 from tpupose_torch.detectors.pose import float32_numerics
 from tpupose_torch.models import ARCHS
 from tpupose_torch.ops.peaks import global_argmax_keypoints
-from tpupose_torch.ops.resize import resize_chainer, resize_u8_linear
+from tpupose_torch.ops.resize import (pack_u8_images, resize_chainer,
+                                      resize_u8_linear,
+                                      resize_u8_linear_batch)
 from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
                                  model_params, qtree_to_device, quant_apply,
                                  quantize, resolve_conv7_impl)
@@ -127,7 +131,9 @@ class CropKeypointDetector:
     def prepare_crops(self, crops: Sequence[np.ndarray],
                       flips: Sequence[bool]) -> np.ndarray:
         """HWC uint8 crops -> (B, S, S, 3) uint8 network inputs, S =
-        ``cfg.img_size``; a flipped crop is mirrored first."""
+        ``cfg.img_size``, on the host; a flipped crop is mirrored first.
+        ``submit_crops`` computes the same bytes on the detector's
+        device."""
         size = self.cfg.img_size
         return np.stack([
             resize_u8_linear(np.asarray(c)[:, ::-1] if f else np.asarray(c),
@@ -163,15 +169,17 @@ class CropKeypointDetector:
             return self.model(x)
         return functional_call(self.model, weights, (x,))
 
-    def forward_maps(self, imgs_u8: np.ndarray) -> torch.Tensor:
-        """(B, S, S, 3) uint8 network inputs -> every stage's heatmaps
+    def forward_maps(self, imgs_u8) -> torch.Tensor:
+        """(B, S, S, 3) uint8 network inputs, a tensor on the detector's
+        device or a numpy batch (uploaded first) -> every stage's heatmaps
         (stages, B, S/8, S/8, C) on the detector's device: the int8 forward
         once quantized, else the float32 model."""
-        with annotate("crop.upload"):
-            imgs = torch.from_numpy(
-                np.ascontiguousarray(imgs_u8)).to(self.device)
+        if not isinstance(imgs_u8, torch.Tensor):
+            with annotate("crop.upload"):
+                imgs_u8 = torch.from_numpy(
+                    np.ascontiguousarray(imgs_u8)).to(self.device)
         with annotate("crop.forward"), float32_numerics(), torch.no_grad():
-            return self._net(preprocess_crops_u8(imgs))
+            return self._net(preprocess_crops_u8(imgs_u8))
 
     def _batch_forward_fn(self):
         """The crop forward program: ``(weights, imgs_u8)``, (B, S, S, 3)
@@ -227,8 +235,13 @@ class CropKeypointDetector:
         if not crops:
             return []
         flips = list(flips) if flips else [False] * len(crops)
+        size = self.cfg.img_size
+        with annotate("crop.upload"):
+            packed, descriptors = pack_u8_images(
+                crops, flips, pin_memory=self.device.type == "cuda")
+            packed = packed.to(self.device, non_blocking=True)
         with annotate("crop.resize"):
-            imgs = self.prepare_crops(crops, flips)
+            imgs = resize_u8_linear_batch(packed, descriptors, (size, size))
         heatmaps = self.forward_maps(imgs)[-1]
         with annotate("crop.postprocess"):
             return self.submit_tails(
