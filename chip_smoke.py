@@ -118,6 +118,18 @@ counters; greedy_match and group_fold on planted tables of each shape).
    Phase 6 also checks ``detect_precise`` against ``__call__``.  Prints
    the crop forwards' times (CUDA events, B = 1 and 8) and
    ``detect_batch``'s host time per crop.
+   Phase 8b (``run_body25``): ``PoseDetector("body25")`` on two 720x1280
+   frames (368x656 input, a 46x82 grid), f32 and int8, (N, 25, 3) poses;
+   108 conv_s8 launches per int8 forward and no conv7 or requant; its
+   maps bit-equal to the CPU's int8 forward; every kernel bit-equal at
+   every shape the path gave it (conv_s8 at its groups and PReLU,
+   group_fold at 25 parts); the im2col route on the card (108 requant
+   launches, 98 of them PReLU, no conv kernel) equal to the kernel
+   route, its epilogues bit-equal at every shape; each distinct 46x82
+   conv_s8 layer (``BODY25_TIMED``) at every tile it takes, bit-equal
+   and timed from CUDA-graph replays, three of them
+   (``BODY25_PLAIN_TIMED``) beside the plain route and ``_int_mm``.
+   Alone: ``python3 scripts/body25_probe.py``.
 9. Drive the serving path (``apps/serve.py``, ``serving.py``,
    ``detectors/bucketed.py``) with raw ``application/octet-stream``
    requests to ``make_server`` servers on port 0: over the f32 and the
@@ -219,6 +231,7 @@ that runs it; phase 11's counted runs included) and the result line.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -593,13 +606,17 @@ def _match_args(rng, name, lead, k):
             for a in _cases().match_tables(rng, name, tuple(lead), k)]
 
 
-def _fold_args(rng, lead, k, n_limbs):
+def _fold_args(rng, lead, k, n_limbs, topology=None):
     """``tests/postprocess_cases.py::fold_tables`` on the card: (a_slot,
-    b_slot, conn score, valid, peak scores)."""
+    b_slot, conn score, valid, peak scores), over ``topology``'s pairs and
+    parts (COCO's by default)."""
     import torch
 
+    shape = {} if topology is None else dict(n_limbs=topology.num_limbs,
+                                             n_joints=topology.num_joints)
     a, b, s, v, p = (torch.from_numpy(x).cuda()
-                     for x in _cases().fold_tables(rng, tuple(lead), k))
+                     for x in _cases().fold_tables(rng, tuple(lead), k,
+                                                   **shape))
     return a[..., :n_limbs, :], b[..., :n_limbs, :], s[..., :n_limbs, :], \
         v[..., :n_limbs, :], p
 
@@ -956,6 +973,24 @@ def _conv_s8_case(rng, b, h, w, c, o, k):
     return x, kq, mult, bias
 
 
+def _conv_s8_groups_case(rng, b, h, w, channels, o, k, act):
+    """``_conv_s8_case`` for groups of ``channels`` and an activation:
+    each group's input, kernel and mult, a shared bias, and for PReLU
+    slopes of both signs, so the sum, the slope and every clip act."""
+    import numpy as np
+    import torch
+
+    parts, kernels, mults = [], [], []
+    for c in channels:
+        x, kq, mult, bias = _conv_s8_case(rng, b, h, w, c, o, k)
+        parts.append(x)
+        kernels.append(kq)
+        mults.append(mult / len(channels))
+    slope = (torch.from_numpy(rng.uniform(-0.5, 1.5, o).astype(np.float32))
+             .cuda() if act == "prelu" else None)
+    return parts, kernels, mults, bias - 20.0, slope
+
+
 def _conv7_case(rng, b, h, w, channels):
     import numpy as np
     import torch
@@ -1009,6 +1044,7 @@ def check_path_shapes(label, cfg, shapes):
     from tpupose_torch.ops import requant as rq
     from tpupose_torch.ops import resize as rsz
     from tpupose_torch.ops.grouping import fold_connections
+    from tpupose_torch.topology import BODY25, COCO18
 
     rng = np.random.RandomState(1)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1026,33 +1062,39 @@ def check_path_shapes(label, cfg, shapes):
         if not torch.equal(got, ref):
             raise AssertionError(f"{label}: conv7_s8 disagrees at "
                                  f"{(b, h, w)} groups {channels}")
-    for b, h, w, c, o, k in sorted(shapes["conv_s8"]):
-        x, kq, mult, bias = _conv_s8_case(rng, b, h, w, c, o, k)
-        got = cs.conv_s8(x, kq, mult, bias)
-        ref = cs.conv_s8_reference(x, kq, mult, bias)
+    for b, h, w, channels, o, k, act in sorted(shapes["conv_s8"]):
+        parts, kernels, mults, bias, slope = _conv_s8_groups_case(
+            rng, b, h, w, channels, o, k, act)
+        got = cs.conv_s8(parts, kernels, mults, bias, act, slope)
+        ref = cs.conv_s8_reference(parts, kernels, mults, bias, act, slope)
         if not torch.equal(got, ref):
             raise AssertionError(f"{label}: conv_s8 disagrees at "
-                                 f"{(b, h, w)} {c} -> {o}, {k}x{k}")
+                                 f"{(b, h, w)} {channels} -> {o}, {k}x{k} "
+                                 f"{act}")
     for *lead, k in sorted(shapes.get("greedy_match", {})):
         args = _match_args(rng, "ties", lead, k)
         if not all(torch.equal(g, r) for g, r in zip(
                 gm.greedy_match(*args), paf.greedy_match(*args))):
             raise AssertionError(f"{label}: greedy_match disagrees at "
                                  f"{(*lead, k)}")
-    for *lead, n_limbs, k, s in sorted(shapes.get("group_fold", {})):
-        args = _fold_args(rng, lead, k, n_limbs)
+    topologies = {t.num_joints: t for t in (COCO18, BODY25)}
+    for *lead, n_limbs, k, s, j in sorted(shapes.get("group_fold", {})):
+        topology = topologies[j]
+        args = _fold_args(rng, lead, k, n_limbs, topology)
         if not all(torch.equal(g, r) for g, r in zip(
-                gf.group_fold(*args, s, 2, 0.3),
-                fold_connections(*args, s, 2, 0.3))):
+                gf.group_fold(*args, s, 2, 0.3, topology),
+                fold_connections(*args, s, 2, 0.3, topology))):
             raise AssertionError(f"{label}: group_fold disagrees at "
-                                 f"{(*lead, n_limbs, k)} S {s}")
-    for shape, groups, relu, lo in sorted(shapes["requant_epilogue"]):
+                                 f"{(*lead, n_limbs, k)} S {s} J {j}")
+    for shape, groups, act, lo in sorted(shapes["requant_epilogue"]):
         accs, mults, bias = _requant_case(gen, shape, groups)
-        got = rq.requant_epilogue(accs, mults, bias, relu, lo)
-        ref = rq.requant_epilogue_reference(accs, mults, bias, relu, lo)
+        slope = (torch.rand(shape[-1], generator=gen, device="cuda") * 2.0
+                 - 0.5 if act == "prelu" else None)
+        got = rq.epilogue(accs, mults, bias, act, lo, slope)
+        ref = rq.epilogue_reference(accs, mults, bias, act, lo, slope)
         if not torch.equal(got, ref):
             raise AssertionError(f"{label}: requant disagrees at {shape} "
-                                 f"groups {groups} relu {relu} lo {lo}")
+                                 f"groups {groups} act {act} lo {lo}")
     resizes = sorted(shapes.get("resize_u8_linear", {}))
     for out_h, out_w, items in resizes:
         crops = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
@@ -1294,6 +1336,230 @@ def check_conv_s8():
             record = (times["kernel"], times["plain"], (bound, bound_by))
     torch.cuda.synchronize()
     return (float(worst), *record), per_layer
+
+
+# BODY_25's distinct conv_s8 layers at the 46x82 grid of a 720p frame's
+# 368x656 input, all PReLU: (input groups' channels, O, k).  The dense
+# blocks' _0 read the block before as three groups, the stage inputs
+# [feature, PAF(, heatmap)], Mconv6 the last block's three.
+BODY25_GRID = (1, 46, 82)
+BODY25_TIMED = {
+    "conv4_3_CPM": ((512,), 256, 3),
+    "conv4_4_CPM": ((256,), 128, 3),
+    "stage0 Mconv1_0": ((128,), 96, 3),
+    "w96 _1/_2": ((96,), 96, 3),
+    "w96 _0 of [_0, _1, _2]": ((96, 96, 96), 96, 3),
+    "w96 Mconv6": ((96, 96, 96), 256, 1),
+    "[feature, PAF] -> 96": ((128, 52), 96, 3),
+    "[feature, PAF] -> 128": ((128, 52), 128, 3),
+    "[feature, heatmap, PAF]": ((128, 26, 52), 128, 3),
+    "w128 _1/_2": ((128,), 128, 3),
+    "w128 _0 of [_0, _1, _2]": ((128, 128, 128), 128, 3),
+    "w128 Mconv6": ((128, 128, 128), 512, 1),
+}
+
+
+# BODY25_TIMED layers also timed beside the plain route and _int_mm
+BODY25_PLAIN_TIMED = ("w128 _1/_2", "w128 _0 of [_0, _1, _2]",
+                      "w128 Mconv6")
+
+
+def conv_s8_groups_bound(b, h, w, channels, o, k):
+    """A grouped PReLU conv_s8 layer's bound: every group's input, the
+    weights, per-group mults, bias and slopes read once, the output
+    written once; 2 int8 operations per multiply-add."""
+    c = sum(channels)
+    n_bytes = (b * h * w * c + k * k * c * o + 4 * o * (len(channels) + 2)
+               + b * h * w * o)
+    return _bound(n_bytes, 2 * b * h * w * o * k * k * c, INT8_OPS_PER_S)
+
+
+def _calibrate_body25(det, frame):
+    """Scale a BODY_25 detector's last PAF head to unit amplitude, then,
+    its maps recomputed, its last heatmap head so each part's blurred map
+    peaks at three times the threshold: random weights then form
+    persons."""
+    import torch
+
+    from tpupose_torch.ops.gaussian import gaussian_blur_reflect
+
+    heads = {m: list(getattr(det.model, m).children())[-1].conv
+             for m in ("stage3_L2", "stage1_L1")}
+    with torch.no_grad():
+        (paf, _), _ = det.compute_maps(frame)
+        gain = 1.0 / paf.abs().amax(dim=(1, 2)).clamp_min(1e-9)
+        heads["stage3_L2"].weight.mul_(gain[:, None, None, None])
+        heads["stage3_L2"].bias.mul_(gain)
+        (_, hm), _ = det.compute_maps(frame)
+        blur = gaussian_blur_reflect(hm[:-1], det.cfg.gaussian_sigma)
+        gain = torch.ones_like(hm[:, 0, 0])
+        gain[:-1] = (det.cfg.heatmap_peak_thresh * 3.0
+                     / blur.amax(dim=(1, 2)).clamp_min(1e-12))
+        heads["stage1_L1"].weight.mul_(gain[:, None, None, None])
+        heads["stage1_L1"].bias.mul_(gain)
+
+
+def run_body25(cfg, frames):
+    """BODY_25 on 720x1280 frames (368x656 network input, a 46x82 grid):
+    the f32 and int8 detectors on their normal path, (N, 25, 3) poses; the
+    int8 forward's launches (108 conv_s8, no conv7, no requant); its maps
+    bit-equal to the CPU's int8 forward on the same tree; every kernel
+    bit-equal to its plain version at every shape the path gave it; then
+    each distinct 46x82 conv_s8 layer at every tile it takes, bit-equal,
+    timed from CUDA-graph replays in turns beside its bound and
+    ``pick_tile``'s choice.  Returns the int8 path's launch counts."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch import quant as tq
+    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+    from tpupose_torch.ops import conv_s8 as cs
+    from tpupose_torch.ops.resize import resize_u8_linear
+
+    t0 = time.perf_counter()
+    det = PoseDetector("body25", cfg=cfg, device="cuda", seed=0)
+    _calibrate_body25(det, frames[0])
+    poses = [det(f) for f in frames]
+    torch.cuda.synchronize()
+    f32_ms = _cuda_ms(lambda: det(frames[0]), 5)
+    print(f"body25 f32: {[p.shape for p, _ in poses]} poses, "
+          f"{f32_ms!r} ms a frame (CUDA events, host-bound), set-up and "
+          f"first calls {time.perf_counter() - t0:.2f} s")
+    qdet = PoseDetector("body25", cfg=cfg, device="cuda", seed=0)
+    qdet.model.load_state_dict(det.model.state_dict())
+    qdet.quantize(frames[:2])
+    if qdet.conv7_impl != "kernel":
+        raise AssertionError(f"quantize() chose {qdet.conv7_impl!r}")
+    qdet(frames[0])
+    check_no_sync("body25 int8", qdet, frames[0])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    singles = [qdet(f) for f in frames]
+    torch.cuda.synchronize()
+    counts, shapes = _read_counts(), _read_shapes()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    print(f"body25 int8: launches {counts} over {len(frames)} forwards, "
+          f"poses per frame {[len(p) for p, _ in singles]}, shapes "
+          f"{[p.shape for p, _ in singles]}, peak device memory "
+          f"{peak_mib:.1f} MiB")
+    if (counts["conv_s8"] != 108 * len(frames) or counts["conv7_s8"]
+            or counts["requant_epilogue"]
+            or any(counts[k] != len(frames) for k in POSTPROCESS_KERNELS)):
+        raise AssertionError(f"body25 int8 launches {counts}")
+    if any(p.shape[1:] != (25, 3) for p, _ in singles + poses):
+        raise AssertionError("body25: poses are not (N, 25, 3)")
+    if sum(len(p) for p, _ in singles) < 1:
+        raise AssertionError("body25 int8: no pose found in any frame")
+    check_path_shapes("body25 int8 path", cfg, shapes)
+
+    (in_h, in_w), _ = qdet._geometry(*frames.shape[1:3])
+    x = torch.from_numpy(resize_u8_linear(frames[0], (in_w, in_h))[None]
+                         ).cuda().float() / 255.0 - 0.5
+    cpu_apply = tq.make_quant_apply(
+        qdet.quant_static, tq.qtree_to_device(qdet.qtree, qdet.quant_static,
+                                              "cpu"))
+    with torch.no_grad(), float32_numerics():
+        got = qdet._quant_forward(x)
+        t1 = time.perf_counter()
+        ref = cpu_apply(x.cpu())
+        cpu_s = time.perf_counter() - t1
+        f32 = qdet.model(x)
+    for name, g, r, f in zip(("paf", "heatmap"), got, ref, f32):
+        equal = torch.equal(g.cpu(), r)
+        rms, corr = _fidelity(f[-1], g[-1])
+        print(f"body25 int8 {name} maps {tuple(g.shape)} card vs CPU int8 "
+              f"forward: bit_equal={equal} (CPU {cpu_s:.2f} s); against "
+              f"f32: rms/max {rms!r}, corr {corr!r}")
+        if not equal:
+            raise AssertionError(f"body25 int8 {name} maps: card != CPU")
+
+    # the im2col route on the card: im2col + _int_mm, then requant.cu with
+    # each layer's activation (98 PReLU, 10 ReLU), no conv kernel
+    static = qdet.quant_static
+    im2col_tree = tq.qtree_to_device(qdet.qtree, static, "cuda")
+    _reset_counts()
+    with torch.no_grad(), float32_numerics():
+        routed = tq.quant_apply(static, im2col_tree, x, "im2col")
+        torch.cuda.synchronize()
+        im2col_counts, im2col_shapes = _read_counts(), _read_shapes()
+        route_ms = {
+            "kernel": _cuda_ms(lambda: qdet._quant_forward(x), 10),
+            "im2col": _cuda_ms(lambda: tq.quant_apply(
+                static, im2col_tree, x, "im2col"), 10)}
+    acts = collections.Counter()
+    for (_, _, act, _), n in im2col_shapes["requant_epilogue"].items():
+        acts[act] += n
+    print(f"body25 int8 im2col route on the card: launches {im2col_counts}, "
+          f"requant epilogues by activation {dict(acts)}; maps bit-equal "
+          f"to the kernel route's="
+          f"{all(torch.equal(a, b) for a, b in zip(routed, got))}; "
+          f"forward {route_ms!r} ms by route (CUDA events, eager)")
+    if (im2col_counts["requant_epilogue"] != 108 or im2col_counts["conv_s8"]
+            or im2col_counts["conv7_s8"] or acts != {"prelu": 98,
+                                                     "relu": 10}):
+        raise AssertionError(f"body25 im2col launches {im2col_counts}, "
+                             f"{dict(acts)}")
+    if not all(torch.equal(a, b) for a, b in zip(routed, got)):
+        raise AssertionError("body25 int8: im2col route != kernel route")
+    check_path_shapes("body25 int8 im2col route", cfg, im2col_shapes)
+
+    rng = np.random.RandomState(25)
+    b, h, w = BODY25_GRID
+    timed = {}
+    for name, (channels, o, k) in BODY25_TIMED.items():
+        parts, kernels, mults, bias, slope = _conv_s8_groups_case(
+            rng, b, h, w, channels, o, k, "prelu")
+        packed = [cs.pack_conv_s8_weights(kq) for kq in kernels]
+        want = cs.conv_s8_reference(parts, kernels, mults, bias, "prelu",
+                                    slope)
+        tiles = [t for t, (_, _, n) in enumerate(cs.TILES) if o % n == 0
+                 and (len(channels) == 1 or t in cs.GROUPED_TILES)]
+        fns = {}
+        for t in tiles:
+            fn = (lambda t=t: cs.conv_s8(parts, kernels, mults, bias,
+                                         "prelu", slope, packed, t))
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"body25 conv_s8 {name} disagrees at "
+                                     f"tile {cs.TILES[t]}")
+            fns[cs.TILES[t]] = fn
+        by_tile = _round_robin_ms(fns, iters=20, timer=_graph_ms)
+        pick = cs.TILES[cs.pick_tile(b, h, w, sum(channels), o, k,
+                                     len(channels))]
+        bound, bound_by = conv_s8_groups_bound(b, h, w, channels, o, k)
+        timed[name] = dict(by_tile=by_tile, pick=pick, bound=bound)
+        if name in BODY25_PLAIN_TIMED:
+            # beside the picked tile: the plain route and _int_mm alone,
+            # one per group on its prebuilt patch matrix
+            mats = []
+            for xg, kq in zip(parts, kernels):
+                patches = _patch_matrix(xg, k)
+                mats.append((patches, torch.nn.functional.pad(
+                    kq.reshape(-1, o),
+                    (0, 0, 0, patches.shape[1] - kq[..., 0].numel())
+                ).contiguous()))
+            others = _round_robin_ms(
+                {"kernel": fns[pick],
+                 "plain": lambda: cs.conv_s8_reference(
+                     parts, kernels, mults, bias, "prelu", slope),
+                 "int_mm": lambda: [torch._int_mm(a, w8) for a, w8 in mats]},
+                iters=20, timer=_graph_ms)
+            timed[name].update(plain=others["plain"],
+                               int_mm=others["int_mm"])
+            print(f"body25 conv_s8 {name}: "
+                  + ", ".join(f"{n} {v!r} ms" for n, v in others.items())
+                  + " (CUDA-graph replays of 20 calls, in turns)")
+        print(f"body25 conv_s8 {name} {(b, h, w)} {channels} -> {o} "
+              f"{k}x{k} prelu: bit_equal=True at every tile; per tile "
+              f"(rows, K warps, channels): "
+              + ", ".join(f"{t} {v!r}" for t, v in by_tile.items())
+              + f" ms (CUDA-graph replays of 20 calls, in turns); picks "
+              f"{pick} ({by_tile[pick]!r} ms); bound {bound!r} ms "
+              f"({bound_by}), positive="
+              f"{float((want > 0).float().mean()):.3f}")
+    torch.cuda.synchronize()
+    del det, qdet
+    torch.cuda.empty_cache()
+    return counts, timed
 
 
 def _wrappers():
@@ -3973,6 +4239,11 @@ def main() -> int:
     check_tiny_frames(cfg, frames)
     print(f"phase 8: crop nets {t1 - t0:.2f} s, kernels {t2 - t1:.2f} s, "
           f"tiny frames {time.perf_counter() - t2:.2f} s")
+    t0 = time.perf_counter()
+    frames720 = np.random.RandomState(25).randint(
+        0, 256, (2, 720, 1280, 3)).astype(np.uint8)
+    body25_counts, _ = run_body25(cfg, frames720)
+    print(f"phase 8b: BODY_25 {time.perf_counter() - t0:.2f} s")
     serving_counts = run_serving(f32_det, qdet, pdet, face, cfg, frames,
                                  smi.stdout.strip())
     modes_counts = run_modes(f32_det, qdet, cfg, frames, smi.stdout.strip())
@@ -3990,7 +4261,7 @@ def main() -> int:
     launches = {name: quant_counts[name] + precise_counts[name]
                 + crop_counts[name] + serving_counts[name]
                 + modes_counts[name] + parallel_counts[name]
-                for name in quant_counts}
+                + body25_counts[name] for name in quant_counts}
     for name, n in fast_counts.items():
         launches[name] += n
     # requant runs on the im2col route only: its launches are those of

@@ -54,32 +54,34 @@ def match_tables(rng, name, lead=(3, NUM_LIMBS), k=8):
     return score, valid, n_a.astype(np.int64), n_b.astype(np.int64)
 
 
-def fold_tables(rng, lead=(3,), k=FOLD_SLOTS):
+def fold_tables(rng, lead=(3,), k=FOLD_SLOTS, n_limbs=NUM_LIMBS,
+                n_joints=NUM_JOINTS):
     """(a_slot, b_slot (*lead, L, K) int64, conn score float32, valid bool,
     peak scores (*lead, J, K) float32); valid entries anywhere in a row,
-    slots in [0, K), -1 where invalid."""
-    shape = tuple(lead) + (NUM_LIMBS, k)
+    slots in [0, K), -1 where invalid.  L and J are COCO's unless given."""
+    shape = tuple(lead) + (n_limbs, k)
     a = rng.randint(0, k, shape)
     b = rng.randint(0, k, shape)
     valid = rng.rand(*shape) < 0.7
     a[~valid] = -1
     b[~valid] = -1
     score = rng.uniform(0.05, 1.0, shape).astype(np.float32)
-    peaks = rng.uniform(0.05, 1.0, tuple(lead) + (NUM_JOINTS, k)).astype(
+    peaks = rng.uniform(0.05, 1.0, tuple(lead) + (n_joints, k)).astype(
         np.float32)
     return a.astype(np.int64), b.astype(np.int64), score, valid, peaks
 
 
-def crowd_tables(rng, lead=(1,), people=32, k=32):
+def crowd_tables(rng, lead=(1,), people=32, k=32, n_limbs=NUM_LIMBS,
+                 n_joints=NUM_JOINTS):
     """A crowd in ``fold_tables``' layout: person p holds peak slot p on
     every joint, and every limb carries the valid connection (p, p) with a
     seeded score, so each limb row holds ``people`` valid connections."""
-    shape = tuple(lead) + (NUM_LIMBS, k)
+    shape = tuple(lead) + (n_limbs, k)
     slots = np.broadcast_to(np.arange(k), shape)
     valid = slots < people
     a = np.where(valid, slots, -1).astype(np.int64)
     score = rng.uniform(0.05, 1.0, shape).astype(np.float32)
-    peaks = rng.uniform(0.05, 1.0, tuple(lead) + (NUM_JOINTS, k)).astype(
+    peaks = rng.uniform(0.05, 1.0, tuple(lead) + (n_joints, k)).astype(
         np.float32)
     return a, a.copy(), score, valid.copy(), peaks
 

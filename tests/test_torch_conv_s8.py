@@ -19,8 +19,9 @@ import torch
 from tpupose_torch import quant as tq
 from tpupose_torch.detectors.pose import PoseDetector
 from tpupose_torch.ops.conv7 import MAX_SMEM_BYTES, im2col_acc_s8
-from tpupose_torch.ops.conv_s8 import (NUM_SMS, STAGES, TILE_W, TILES,
-                                       UNIT_K, UNITS_PER_WARP, blocks, c_pad,
+from tpupose_torch.ops.conv_s8 import (GROUPED_TILES, NUM_SMS, STAGES,
+                                       TILE_W, TILES, UNIT_K,
+                                       UNITS_PER_WARP, blocks, c_pad,
                                        check_inputs, check_kernel_limits,
                                        conv_s8, conv_s8_reference,
                                        pack_conv_s8_weights, pick_tile,
@@ -63,17 +64,19 @@ def _torch(*arrays):
     (2, 5, 3, 32, 96, 1, False),      # 1x1, B = 2, relu off
 ], ids=["c3", "batched_norelu", "odd_grid", "1x1", "1x1_batched_norelu"])
 def test_conv_s8_reference_equals_jax_qconv(b, h, w, c, o, k, relu):
+    """The JAX layer stores in [0, 127] with its ReLU on or off, which is
+    ``act="relu"``."""
     from tpupose.quant import _qconv
 
     x, kq, mult, bias = _case(b * h * w + k, b, h, w, c, o, k)
-    got = conv_s8_reference(*_torch(x, kq, mult, bias), relu=relu)
+    got = conv_s8_reference(*_torch(x, kq, mult, bias), act="relu")
     assert got.dtype == torch.int8 and tuple(got.shape) == (b, h, w, o)
     meta = {"ksize": k, "relu": relu, "f32_out": False}
     spec = {"kernel_q": (kq,), "mult": (mult,), "bias_eff": bias}
     ref = _qconv((jnp.asarray(x),), spec, meta, "xla")
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     # the wrapper takes the plain version on CPU tensors
-    assert torch.equal(conv_s8(*_torch(x, kq, mult, bias), relu=relu), got)
+    assert torch.equal(conv_s8(*_torch(x, kq, mult, bias), act="relu"), got)
     out = got.numpy()
     assert 0.2 < (out > 0).mean() < 0.9 and out.min() == 0
     assert out.max() == 127
@@ -290,3 +293,101 @@ def test_quant_apply_kernel_route_equals_im2col_on_cpu(monkeypatch):
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert got[1].abs().max() > 0
+
+
+def _grouped_case(seed, b, h, w, channels, o, k, act):
+    """Seeded groups (inputs over [-128, 127], their kernels and mults),
+    sums of a spread of about 60 around a bias in [-40, 40], so every clip
+    acts, and for PReLU slopes of both signs."""
+    rng = np.random.RandomState(seed)
+    parts, kernels, mults = [], [], []
+    for c in channels:
+        parts.append(rng.randint(-128, 128, (b, h, w, c)).astype(np.int8))
+        kernels.append(rng.randint(-127, 128, (k, k, c, o)).astype(np.int8))
+        acc_std = 74.0 * 73.0 * np.sqrt(k * k * c)
+        mults.append((rng.uniform(0.5, 1.5, o) * 60.0 / acc_std
+                      / np.sqrt(len(channels))).astype(np.float32))
+    bias = rng.uniform(-40.0, 40.0, o).astype(np.float32)
+    slope = (rng.uniform(-0.5, 1.5, o).astype(np.float32)
+             if act == "prelu" else None)
+    return parts, kernels, mults, bias, slope
+
+
+def _formula(parts, kernels, mults, bias, act, slope):
+    """The epilogue's formula in numpy float32: per group an exact integer
+    convolution (float64 sums of integers), ``y = acc_0 * m_0 (+ acc_1 *
+    m_1 ...) + bias`` rounded operation by operation in group order, then
+    the activation, ``rint`` and the clip."""
+    y = None
+    for x, kq, m in zip(parts, kernels, mults):
+        k = kq.shape[0]
+        r = k // 2
+        xp = np.pad(x.astype(np.float64), ((0, 0), (r, r), (r, r), (0, 0)))
+        b, h, w, _ = x.shape
+        acc = np.zeros((b, h, w, kq.shape[3]))
+        for dy in range(k):
+            for dx in range(k):
+                acc += xp[:, dy:dy + h, dx:dx + w] @ kq[dy, dx].astype(
+                    np.float64)
+        part = acc.astype(np.float32) * m
+        y = part if y is None else (y + part).astype(np.float32)
+    y = (y + bias).astype(np.float32)
+    lo = -127.0
+    if act == "relu":
+        y, lo = np.maximum(y, np.float32(0.0)), 0.0
+    elif act == "prelu":
+        y = np.where(y < 0, (y * slope).astype(np.float32), y)
+    return np.clip(np.rint(y), lo, 127.0).astype(np.int8)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "prelu"])
+@pytest.mark.parametrize("channels, o, k", [
+    ((64,), 32, 3),              # one group: every CocoPoseNet layer
+    ((40, 26), 64, 3),           # [feature, heatmap]-like, C % 16 != 0
+    ((32, 26, 52), 32, 3),       # [feature, heatmap, PAF]
+    ((96, 96, 96), 64, 1),       # Mconv6 on a dense block's three members
+], ids=["g1", "g2", "g3", "g3_1x1"])
+def test_conv_s8_groups_and_activations_follow_the_formula(channels, o, k,
+                                                          act):
+    """The plain version (and the wrapper's CPU route) over G groups and
+    each activation equals the formula bit for bit; PReLU slopes of both
+    signs, so a negative slope flips a sign and the clip to -127 acts."""
+    parts, kernels, mults, bias, slope = _grouped_case(
+        len(channels) * 10 + k, 1, 6, 9, channels, o, k, act)
+    want = _formula(parts, kernels, mults, bias, act, slope)
+    t = [torch.from_numpy(a) for a in parts]
+    kq = [torch.from_numpy(a) for a in kernels]
+    m = [torch.from_numpy(a) for a in mults]
+    sl = None if slope is None else torch.from_numpy(slope)
+    got = conv_s8_reference(t, kq, m, torch.from_numpy(bias), act, sl)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(conv_s8(t, kq, m, torch.from_numpy(bias), act, sl),
+                       got)
+    out = got.numpy()
+    assert out.max() == 127
+    assert out.min() == (0 if act == "relu" else -127)
+    if act == "prelu":   # both signs of slope reached negative sums
+        neg = (out < 0).mean()
+        assert 0.05 < neg < 0.9
+
+
+def test_conv_s8_rejects_bad_groups_and_activations():
+    parts, kernels, mults, bias, slope = [
+        [torch.from_numpy(a) for a in v] if isinstance(v, list)
+        else (None if v is None else torch.from_numpy(v))
+        for v in _grouped_case(0, 1, 4, 5, (32, 32), 32, 3, "prelu")]
+    with pytest.raises(ValueError, match="slopes go with act='prelu'"):
+        conv_s8(parts, kernels, mults, bias, "relu", slope)
+    with pytest.raises(ValueError, match="slopes go with act='prelu'"):
+        conv_s8(parts, kernels, mults, bias, "prelu")
+    with pytest.raises(ValueError, match="activation 'gelu'"):
+        conv_s8(parts, kernels, mults, bias, "gelu")
+    with pytest.raises(ValueError, match="2 groups, 1 kernels"):
+        conv_s8(parts, kernels[:1], mults, bias)
+    with pytest.raises(ValueError, match="1 to 4"):
+        conv_s8(parts * 3, kernels * 3, mults * 3, bias)
+    with pytest.raises(ValueError, match="one \\(B, H, W\\)"):
+        conv_s8([parts[0], parts[1][:, :2]], kernels, mults, bias)
+    assert smem_bytes((128, 128, 128), 3, 1) == smem_bytes(128, 3, 1)
+    assert smem_bytes((128, 26, 52), 3, 0) == smem_bytes(128, 3, 0)
+    assert pick_tile(1, 46, 82, 384, 128, 3, 3) in GROUPED_TILES

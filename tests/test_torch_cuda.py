@@ -11,6 +11,8 @@ must find the pose table the CPU finds from the same weights, and the card's
 int8 forward must equal the CPU's int8 forward bit for bit.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -229,14 +231,42 @@ def test_conv_s8_kernel_matches_reference(cuda_device, layer):
 def test_conv_s8_kernel_every_tile_matches_reference(cuda_device, tile, c,
                                                      o, k):
     """Each block tile of the kernel on a grid that is a multiple of no
-    tile, at B = 2 and relu off; 40 channels stage as whole 16-byte chunks
-    zero-padded to 64."""
+    tile, at B = 2 and no activation (a signed store); 40 channels stage
+    as whole 16-byte chunks zero-padded to 64."""
     x, kq, mult, bias = _conv_s8_case(np.random.RandomState(tile), 2, 19,
                                       37, c, o, k, cuda_device)
-    got = cs.conv_s8(x, kq, mult, bias, relu=False, tile=tile)
-    ref = cs.conv_s8_reference(x, kq, mult, bias, relu=False)
+    got = cs.conv_s8(x, kq, mult, bias, act="none", tile=tile)
+    ref = cs.conv_s8_reference(x, kq, mult, bias, act="none")
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "prelu"])
+@pytest.mark.parametrize("channels, o, k", [
+    ((64,), 64, 3), ((128, 52), 128, 3), ((128, 26, 52), 96, 3),
+    ((96, 96, 96), 256, 1)], ids=["g1", "g2", "g3", "g3_1x1"])
+def test_conv_s8_kernel_groups_and_activations_match_plain(
+        cuda_device, channels, o, k, act):
+    """The kernel over G input groups (BODY_25's concatenations) and each
+    activation at every tile it takes, on a ragged grid at B = 2, against
+    its plain version; PReLU slopes of both signs."""
+    rng = np.random.RandomState(len(channels) + k)
+    cases = [_conv_s8_case(rng, 2, 19, 37, c, o, k, cuda_device)
+             for c in channels]
+    parts, kernels = [c[0] for c in cases], [c[1] for c in cases]
+    mults, bias = [c[2] for c in cases], cases[0][3] - 20.0
+    slope = (torch.from_numpy(rng.uniform(-0.5, 1.5, o).astype(np.float32))
+             .to(cuda_device) if act == "prelu" else None)
+    ref = cs.conv_s8_reference(parts, kernels, mults, bias, act, slope)
+    tiles = [t for t, (_, _, n) in enumerate(cs.TILES) if o % n == 0
+             and (len(channels) == 1 or t in cs.GROUPED_TILES)]
+    for tile in tiles:
+        got = cs.conv_s8(parts, kernels, mults, bias, act, slope, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), cs.TILES[tile]
+    if len(channels) > 1:
+        with pytest.raises(ValueError, match="groups take"):
+            cs.conv_s8(parts, kernels, mults, bias, act, slope, tile=3)
 
 
 def test_conv_s8_rejects_what_the_kernel_does_not_take(cuda_device):
@@ -280,6 +310,36 @@ def test_requant_kernel_matches_reference(cuda_device, shape, groups, relu,
     assert got.min().item() == lo and got.max().item() == 127
 
 
+@pytest.mark.parametrize("act", ["none", "prelu"])
+@pytest.mark.parametrize("shape, groups", [
+    ((1, 46, 82, 96), 1), ((1, 46, 82, 128), 3), ((2, 19, 37, 256), 2)])
+def test_requant_kernel_activations_match_reference(cuda_device, shape,
+                                                    groups, act):
+    """The kernel's signed stores (BODY_25's im2col route): PReLU with
+    slopes of both signs, and no activation, each in [-127, 127], against
+    the plain version bit for bit; one launch, counted under its act."""
+    rng = np.random.RandomState(groups + len(act))
+    accs = [torch.from_numpy(rng.randint(-2**20, 2**20, shape).astype(
+        np.int32)).to(cuda_device) for _ in range(groups)]
+    mults = [torch.from_numpy((np.abs(rng.randn(shape[-1])) * 1e-4).astype(
+        np.float32)).to(cuda_device) for _ in range(groups)]
+    bias = torch.from_numpy(rng.randn(shape[-1]).astype(np.float32)).to(
+        cuda_device)
+    slope = (torch.from_numpy(rng.uniform(-0.5, 1.5, shape[-1]).astype(
+        np.float32)).to(cuda_device) if act == "prelu" else None)
+    before = rq.requant_epilogue.shapes[(shape, groups, act, -127.0)]
+    got = rq.act_epilogue(accs, mults, bias, act, slope)
+    ref = rq.act_epilogue_reference(accs, mults, bias, act, slope)
+    torch.cuda.synchronize()
+    assert rq.requant_epilogue.shapes[(shape, groups, act, -127.0)] == \
+        before + 1
+    assert torch.equal(got, ref)
+    assert got.min().item() == -127 and got.max().item() == 127
+    if act == "prelu":
+        with pytest.raises(ValueError, match="slope"):
+            rq.act_epilogue(accs, mults, bias, act, None)
+
+
 @pytest.mark.parametrize("m, k, n", [
     (5, 27, 19), (16, 8, 8), (17, 27, 64), (40, 576, 38), (713, 64, 40),
     (2852, 32, 128), (2852, 6272, 128), (524289, 27, 64)])
@@ -321,6 +381,43 @@ def test_int8_forward_on_the_card_equals_the_cpu(cuda_device):
         cpafs, chms = host(frames)
     assert torch.equal(pafs.cpu(), cpafs)
     assert torch.equal(hms.cpu(), chms)
+
+
+def test_body25_int8_im2col_route_on_the_card_equals_the_cpu(cuda_device):
+    """BODY_25's int8 forward on the im2col route on the card: every one
+    of its 108 non-head layers finishes on ``csrc/requant.cu`` (98 of them
+    with the PReLU epilogue), no conv kernel runs, and every stage's maps
+    equal the kernel route's and the CPU's."""
+    from tpupose_torch import quant as tq
+    from tpupose_torch.models.body25 import Body25Net
+
+    model = Body25Net(seed=3).eval()
+    rng = np.random.RandomState(5)
+    frames = torch.from_numpy(rng.randint(0, 256, (2, 64, 96, 3)).astype(
+        np.float32)) / 255.0 - 0.5
+    ranges = tq.calibrate_ranges(model, frames)
+    qtree, static = tq.quantize("body25", model, ranges)
+    tree = tq.qtree_to_device(qtree, static, cuda_device, pack_kernels=True)
+    host = tq.qtree_to_device(qtree, static, "cpu")
+    x = frames[:1]
+    c7.conv7_s8.launches = cs.conv_s8.launches = 0
+    rq.requant_epilogue.launches = 0
+    rq.requant_epilogue.shapes.clear()
+    with torch.no_grad():
+        im2col = tq.quant_apply(static, tree, x.to(cuda_device), "im2col")
+        torch.cuda.synchronize()
+        assert (c7.conv7_s8.launches, cs.conv_s8.launches,
+                rq.requant_epilogue.launches) == (0, 0, 108)
+        acts = collections.Counter()
+        for (_, _, act, _), n in rq.requant_epilogue.shapes.items():
+            acts[act] += n
+        assert acts == {"prelu": 98, "relu": 10}
+        kernel = tq.quant_apply(static, tree, x.to(cuda_device), "kernel")
+        cpu = tq.quant_apply(static, host, x, "im2col")
+    for i, k, c in zip(im2col, kernel, cpu):
+        assert torch.equal(i, k)
+        assert torch.equal(i.cpu(), c)
+    assert float(im2col[1][-1].abs().max()) > 0
 
 
 def test_quantized_precise_detector_on_the_card(cuda_device):
@@ -682,7 +779,8 @@ def test_custom_ops_equal_their_wrappers_on_the_card(cuda_device):
     xq, kq, mult, bias = _conv_s8_case(rng, 1, 46, 62, 128, 128, 3,
                                        cuda_device)
     before = cs.conv_s8.launches
-    got = ops.conv_s8(xq, kq, mult, bias, True, cs.pack_conv_s8_weights(kq))
+    got = ops.conv_s8([xq], [kq], [mult], bias, "relu", None,
+                      [cs.pack_conv_s8_weights(kq)])
     assert cs.conv_s8.launches == before + 1
     assert torch.equal(got, cs.conv_s8(xq, kq, mult, bias))
 
@@ -695,6 +793,13 @@ def test_custom_ops_equal_their_wrappers_on_the_card(cuda_device):
     got = ops.requant_epilogue(accs, rmults, rbias, True, 0.0)
     assert rq.requant_epilogue.launches == before + 1
     assert torch.equal(got, rq.requant_epilogue(accs, rmults, rbias, True))
+    slope = torch.from_numpy(rng.uniform(-0.5, 1.5, 64).astype(
+        np.float32)).to(cuda_device)
+    before = rq.requant_epilogue.launches
+    got = ops.act_epilogue(accs, rmults, rbias, "prelu", slope)
+    assert rq.requant_epilogue.launches == before + 1
+    assert torch.equal(got, rq.act_epilogue(accs, rmults, rbias, "prelu",
+                                            slope))
     torch.cuda.synchronize()
 
 

@@ -44,6 +44,7 @@ from tpupose_torch.ops import group_fold as tgf
 from tpupose_torch.ops import grouping as tgroup
 from tpupose_torch.ops import paf as tpaf
 from tpupose_torch.ops import postprocess as tpost
+from tpupose_torch.topology import BODY25, COCO18
 
 from postprocess_cases import (FOLD_CASE_NAMES, FOLD_CASES, FOLD_SLOTS,
                                MATCH_CASES, WIDE_SLOTS, crowd_tables,
@@ -438,6 +439,27 @@ def test_group_fold_kernel_source_matches_plain_on_host(host_libs, seed, cap,
         assert int(created.max()) > 32
 
 
+@pytest.mark.parametrize("case", ["planted", "crowd"])
+def test_group_fold_kernel_source_takes_body25_odd_parts(host_libs, case):
+    """BODY_25's 25 parts (an odd table width, stored one slot a store)
+    and 26 pairs with its non-spawning shoulder-ear pairs: the host build
+    of the kernel equals the plain fold over the topology."""
+    module, lib = host_libs["group_fold"]
+    rng = np.random.RandomState(25)
+    shape = dict(n_limbs=BODY25.num_limbs, n_joints=BODY25.num_joints)
+    tables = (fold_tables(rng, (3,), **shape) if case == "planted"
+              else crowd_tables(rng, (2,), people=20, **shape))
+    a, b, s, v, p = (_t(x) for x in tables)
+    cap = 64
+    got = module._launch(lib, *module._limbs(BODY25.num_limbs, BODY25), a, b,
+                         s, v, p, cap, 2, 0.3, None)
+    ref = tgroup.fold_connections(a, b, s, v, p, cap, 2, 0.3, BODY25)
+    assert tuple(ref.joint_slot.shape[-2:]) == (cap, 25)
+    for g, r, field in zip(got, ref, ref._fields):
+        assert g.dtype == r.dtype and torch.equal(g, r), field
+    assert bool(ref.valid.any())
+
+
 def test_group_fold_kernel_source_on_scenes_matches_plain(host_libs):
     """Real connections of three rendered scenes, the default table."""
     from tpupose_torch.ops.peaks import find_peaks
@@ -473,10 +495,12 @@ def test_ops_take_the_frame_axis_on_cpu():
                                              np.random.RandomState(3))]
     a, b, s, v, p = (_t(x) for x in _fold_case(4))
     fold_args = (a, b, s, v, p, 8, 2.0, 0.3)
+    tables = ([int(j) for j in COCO18.limbs_from],
+              [int(j) for j in COCO18.limbs_to], list(COCO18.spawns))
     launches = (tgm.greedy_match.launches, tgf.group_fold.launches)
     for op, args, ref in (
             (ops.greedy_match, match_args, tpaf.greedy_match(*match_args)),
-            (ops.group_keypoints, fold_args,
+            (ops.group_keypoints, fold_args + tables,
              tgroup.fold_connections(*fold_args))):
         got = op(*args)
         assert all(torch.equal(g, r) for g, r in zip(got, ref))

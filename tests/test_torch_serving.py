@@ -339,19 +339,23 @@ def _op_cases(rng):
     x = parts[1]
     k3 = t(rng.randint(-127, 128, (3, 3, 9, 16)).astype(np.int8))
     accs = [t(rng.randint(-9999, 9999, (2, 3, 16)).astype(np.int32))] * 2
+    slope = t(rng.uniform(-0.5, 1.5, 16).astype(np.float32))
     return [
         ("blur_nms", (hm, 2.5, 0.3), bn.blur_nms_reference(hm, 2.5, 0.3)),
         ("conv7_s8", (parts, kernels, mults, bias, True, []),
          c7.conv7_s8_reference(parts, kernels, mults, bias)),
-        ("conv_s8", (x, k3, mults[0], bias, False, None),
-         cs.conv_s8_reference(x, k3, mults[0], bias, relu=False)),
+        ("conv_s8", ([x], [k3], [mults[0]], bias, "relu", None, []),
+         cs.conv_s8_reference(x, k3, mults[0], bias)),
         ("requant_epilogue", (accs, mults, bias, True, 0.0),
          rq.requant_epilogue_reference(accs, mults, bias, True)),
+        ("act_epilogue", (accs, mults, bias, "prelu", slope),
+         rq.act_epilogue_reference(accs, mults, bias, "prelu", slope)),
     ]
 
 
-@pytest.mark.parametrize("index", range(4), ids=["blur_nms", "conv7_s8",
-                                                 "conv_s8", "requant"])
+@pytest.mark.parametrize("index", range(5), ids=["blur_nms", "conv7_s8",
+                                                 "conv_s8", "requant",
+                                                 "act_epilogue"])
 def test_kernel_ops_run_the_plain_versions_on_cpu(index):
     """``tpupose::*`` on CPU tensors: the plain version, uncounted (no
     kernel launched); the fake implementation gives its shapes."""

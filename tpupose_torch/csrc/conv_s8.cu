@@ -1,6 +1,6 @@
-// int8 x int8 -> int32 k x k SAME convolution (k = 1 or 3) of one input
-// group with the w8a8 requantize epilogue fused, as an implicit GEMM on the
-// int8 tensor cores, for Hopper (sm_90a).
+// int8 x int8 -> int32 k x k SAME convolution (k = 1 or 3) of 1 to 4 input
+// groups with the w8a8 requantize epilogue and its activation fused, as an
+// implicit GEMM on the int8 tensor cores, for Hopper (sm_90a).
 //
 // This is the port's redesign of the Pallas TPU kernel
 // tpupose/ops/pallas/requant.py::requant_epilogue for the card: it replaces
@@ -8,16 +8,28 @@
 // tpupose/quant.py::_qconv does under XLA (lax.conv_general_dilated with
 // preferred_element_type=int32, the epilogue fused by the compiler).  It
 // runs every non-head int8 layer of ksize 1 or 3 (30 per CocoPoseNet
-// forward).  Semantics are those of tpupose_torch/ops/conv_s8.py::
-// conv_s8_reference, bit for bit:
-//   acc = sum over the k x k window and the C channels of x * w (int32,
-//         exact in any order: |acc| <= 9 * 512 * 128 * 127 < 2^31; zero
-//         padding outside the image)
-//   y   = acc * mult + bias in float32, each rounded on its own in that
-//         order (__fmul_rn/__fadd_rn: nvcc would otherwise contract them)
-//   out = clip(rint(max(y, 0)), 0, 127) as int8 (max only with `relu`).
-// The int32 accumulator stays in registers and shared memory: it never
-// reaches device memory, and neither does an im2col patch matrix.
+// forward, 108 per BODY_25 forward).  Semantics are those of
+// tpupose_torch/ops/conv_s8.py::conv_s8_reference, bit for bit:
+//   acc_g = sum over the k x k window and the C_g channels of x_g * w_g
+//           (int32, exact in any order: |acc| <= 9 * 512 * 128 * 127 <
+//           2^31; zero padding outside the image)
+//   y     = acc_0 * mult_0 (+ acc_1 * mult_1 ...) + bias in float32, each
+//           product and sum rounded on its own in that order
+//           (__fmul_rn/__fadd_rn: nvcc would otherwise contract them)
+//   out   = ReLU:  clip(rint(max(y, 0)), 0, 127)
+//           PReLU: clip(rint(y < 0 ? y * slope_c : y), -127, 127)
+//           none:  clip(rint(y), -127, 127)          as int8.
+// The int32 accumulators stay in registers and shared memory: they never
+// reach device memory, and neither does an im2col patch matrix.
+//
+// Groups: BODY_25's dense blocks enter their next conv as the concatenation
+// [_0, _1, _2], and its stages as [feature, PAF(, heatmap)], each member at
+// its own scale.  Each group keeps its own int32 accumulator and is folded
+// into the float32 y in group order before the next group starts, as
+// conv7_s8.cu does; nothing is concatenated in device memory.  One group
+// (kMulti false) is the path of CocoPoseNet and the crop nets: its K loop
+// and epilogue are those of a single-group kernel; the activation is a
+// runtime branch of the epilogue only, outside the K loop.
 //
 // GEMM: M = the block's output pixels (rows of 16), N = its 32 or 64
 // output channels, K = k*k taps x C_pad (channels zero-padded to a multiple
@@ -43,7 +55,11 @@
 // (18 units) split 5/5/4/4.  The K warps' int32 partials meet in shared
 // memory (the ring's space; integer sums are exact in any order) and warp
 // kw finishes the N fragments j with j % kWarpsK == kw.  With kWarpsK = 1
-// each warp finishes its own fragments from registers.
+// each warp finishes its own fragments from registers.  Several groups run
+// on the tiles with kWarpsK > 1 only: each group restages the input tile
+// (at its own pixel stride, in space sized for the widest group) and its
+// weights, and warp kw keeps the float32 y of its kNF / kWarpsK fragments
+// in registers from group to group.
 //
 // Bound: at the stem's grids, tensor-core operations.  conv1_2 (64 -> 64
 // at 368 x 496) is 6.73 G MAC = 13.5 G int8 operations, 6.8 us at the
@@ -66,6 +82,8 @@ constexpr int kTileW = 16;        // output columns per block: one M fragment
 constexpr int kUnitK = 32;        // channels (bytes) of one K unit
 constexpr int kUnitsPerWarp = 4;  // units each K warp takes per ring stage
 constexpr int kStages = 3;        // depth of the weight ring
+constexpr int kMaxGroups = 4;     // CONV_S8_MAX_GROUPS: input groups a launch
+enum { kActNone = 0, kActRelu = 1, kActPrelu = 2 };  // ops/requant.py::ACTS
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -136,11 +154,21 @@ __device__ __forceinline__ void mma_frags(int (&acc)[2][kNF][4],
   }
 }
 
-__device__ __forceinline__ int8_t finish(int acc, float mult, float bias,
-                                         int relu) {
-  float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), mult), bias);
-  if (relu) v = fmaxf(v, 0.0f);
-  v = fminf(fmaxf(rintf(v), 0.0f), 127.0f);
+// The epilogue of one output: y (the groups' scaled sums, in group order)
+// + bias, the activation, rint, the clip.  act: kActNone (store in
+// [-127, 127]), kActRelu (max(v, 0), store in [0, 127]) or kActPrelu
+// (v < 0 ? v * slope : v, store in [-127, 127]).
+__device__ __forceinline__ int8_t finish(float y, float bias, float slope,
+                                         int act) {
+  float v = __fadd_rn(y, bias);
+  float lo = -127.0f;
+  if (act == kActRelu) {
+    v = fmaxf(v, 0.0f);
+    lo = 0.0f;
+  } else if (act == kActPrelu && v < 0.0f) {
+    v = __fmul_rn(v, slope);
+  }
+  v = fminf(fmaxf(rintf(v), lo), 127.0f);
   return (int8_t)(int)v;
 }
 
@@ -164,29 +192,38 @@ struct Tile {
       kRingBytes > kPartialBytes ? kRingBytes : kPartialBytes;
 };
 
-// Shared memory of one block (tpupose_torch/ops/conv_s8.py::smem_bytes
-// computes the same): the haloed input tile, the ring (or the partial
-// sums), then one int per K unit: its A offset in the tile.
-template <int kWarpsM, int kWarpsK, int kNF>
-int smem_bytes(int k, int c_pad) {
-  using T = Tile<kWarpsM, kWarpsK, kNF>;
-  const int r = k / 2;
-  return (T::kTileH + 2 * r) * (kTileW + 2 * r) * (c_pad + 16) +
-         T::kMidBytes + 4 * (k * k * c_pad / kUnitK);
-}
+// The input groups of one launch (by value, in the kernel's parameters).
+struct Groups {
+  const int8_t* x[kMaxGroups];
+  const int8_t* w[kMaxGroups];
+  const float* mult[kMaxGroups];
+  int c[kMaxGroups];
+  int c_pad[kMaxGroups];
+};
 
-template <int kNF>
-__device__ __forceinline__ void store_fragment(
-    const int (&sum)[2][4], int j, int8_t* __restrict__ out,
-    const float* __restrict__ mult, const float* __restrict__ bias, int b,
-    int H, int W, int O, int relu, int row0, int tx0, int n0, int lane) {
-  // Element e of fragment (i, j): pixel column lane / 4 + 8 (e / 2),
-  // channel 8 j + 2 (lane % 4) + e % 2.
-  const int n = n0 + 8 * j + 2 * (lane % 4);
+// Fragment (i, j)'s y, element e = pixel column lane / 4 + 8 (e / 2),
+// channel 8 j + 2 (lane % 4) + e % 2: sum * mult in float32.
+__device__ __forceinline__ void scale_fragment(const int (&sum)[2][4],
+                                               const float* __restrict__ mult,
+                                               int n, float (&y)[2][4]) {
   const float m0 = __ldg(mult + n);
   const float m1 = __ldg(mult + n + 1);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      y[i][e] = __fmul_rn(__int2float_rn(sum[i][e]), e % 2 ? m1 : m0);
+}
+
+__device__ __forceinline__ void store_fragment(
+    const float (&y)[2][4], int j, int8_t* __restrict__ out,
+    const float* __restrict__ bias, const float* __restrict__ slope, int b,
+    int H, int W, int O, int act, int row0, int tx0, int n0, int lane) {
+  const int n = n0 + 8 * j + 2 * (lane % 4);
   const float b0 = __ldg(bias + n);
   const float b1 = __ldg(bias + n + 1);
+  const float s0 = act == kActPrelu ? __ldg(slope + n) : 0.0f;
+  const float s1 = act == kActPrelu ? __ldg(slope + n + 1) : 0.0f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int gy = row0 + i;
@@ -195,22 +232,25 @@ __device__ __forceinline__ void store_fragment(
       const int gx = tx0 + lane / 4 + 8 * h;
       if (gy >= H || gx >= W) continue;
       char2 v;
-      v.x = finish(sum[i][2 * h], m0, b0, relu);
-      v.y = finish(sum[i][2 * h + 1], m1, b1, relu);
+      v.x = finish(y[i][2 * h], b0, s0, act);
+      v.y = finish(y[i][2 * h + 1], b1, s1, act);
       *reinterpret_cast<char2*>(out + (((size_t)b * H + gy) * W + gx) * O +
                                 n) = v;
     }
   }
 }
 
-// Warp (wm, kw) computes output rows 2 wm, 2 wm + 1 of the block's tile (16
-// columns each) and all kTileN channels of the block over its units.
+// One group's int32 sums of the block's tile into `acc`: its unit offsets,
+// its haloed input tile and its weights through the ring, the K loop.
+// Warp (wm, kw) sums output rows 2 wm, 2 wm + 1 of the tile (16 columns
+// each) and all kTileN channels of the block over its units.  Ends with
+// every copy landed; the caller syncs before it reuses the ring.
 template <int kWarpsM, int kWarpsK, int kNF>
-__global__ void __launch_bounds__(Tile<kWarpsM, kWarpsK, kNF>::kThreads)
-conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ mult, const float* __restrict__ bias,
-               int8_t* __restrict__ out, int H, int W, int C, int c_pad,
-               int O, int k, int relu, int tiles_w) {
+__device__ __forceinline__ void group_sums(
+    int (&acc)[2][kNF][4], const int8_t* __restrict__ x,
+    const int8_t* __restrict__ w, int H, int W, int C, int c_pad, int O,
+    int k, int ty0, int tx0, int n0, int8_t* a_tile, int8_t* ring,
+    int* a_off, int warp_m, int kw, int lane) {
   using T = Tile<kWarpsM, kWarpsK, kNF>;
   constexpr int kThreads = T::kThreads;
   const int r = k / 2;
@@ -219,21 +259,6 @@ conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int stride = c_pad + 16;
   const int chunks = c_pad / kUnitK;
   const int units = k * k * chunks;
-  extern __shared__ __align__(128) int8_t smem[];
-  int8_t* a_tile = smem;
-  int8_t* ring = smem + in_h * in_w * stride;
-  int* partial = reinterpret_cast<int*>(ring);
-  int* a_off = reinterpret_cast<int*>(ring + T::kMidBytes);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int warp_m = warp % kWarpsM;
-  const int kw = warp / kWarpsM;
-  const int ty0 = (blockIdx.x / tiles_w) * T::kTileH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTileW;
-  const int n0 = blockIdx.y * T::kTileN;
-  const int b = blockIdx.z;
-  x += (size_t)b * H * W * C;
 
   // Unit u = tap * chunks + c: its A fragment's offset in the tile.
   for (int u = threadIdx.x; u < units; u += kThreads) {
@@ -318,7 +343,6 @@ conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const uint32_t a_row_step = (uint32_t)(in_w * stride);
   const uint32_t b_pair_step = (uint32_t)(16 * T::kRowStride);
 
-  int acc[2][kNF][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -364,60 +388,165 @@ conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
   }
   cp_async_wait<0>();
+}
 
-  const int row0 = ty0 + warp_m * 2;
-  if constexpr (kWarpsK == 1) {
+// The K warps' partial sums of fragment j (kWarpsK > 1), after they were
+// written to `partial`: partial[kw][warp_m][i][j][e][lane], lanes
+// contiguous.
+template <int kWarpsM, int kWarpsK, int kNF>
+__device__ __forceinline__ void write_partials(const int (&acc)[2][kNF][4],
+                                               int* partial, int warp_m,
+                                               int kw, int lane) {
 #pragma unroll
-    for (int j = 0; j < kNF; ++j) {
-      int sum[2][4];
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < kNF; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sum[i][e] = acc[i][j][e];
-      store_fragment<kNF>(sum, j, out, mult, bias, b, H, W, O, relu, row0,
-                          tx0, n0, lane);
-    }
-  } else {
-    __syncthreads();  // the ring is free: it takes the partial sums
-    // partial[kw][warp_m][i][j][e][lane]: lanes contiguous.
+      for (int e = 0; e < 4; ++e)
+        partial[((((kw * kWarpsM + warp_m) * 2 + i) * kNF + j) * 4 + e) *
+                    32 + lane] = acc[i][j][e];
+}
+
+template <int kWarpsM, int kWarpsK, int kNF>
+__device__ __forceinline__ void sum_partials(const int* partial, int j,
+                                             int warp_m, int lane,
+                                             int (&sum)[2][4]) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-      for (int j = 0; j < kNF; ++j)
+    for (int e = 0; e < 4; ++e) {
+      int s = 0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          partial[((((kw * kWarpsM + warp_m) * 2 + i) * kNF + j) * 4 + e) *
-                      32 + lane] = acc[i][j][e];
-    __syncthreads();
-    // Warp kw sums its N fragments over the K warps' partials.
-    for (int j = kw; j < kNF; j += kWarpsK) {
-      int sum[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int s = 0;
-#pragma unroll
-          for (int q = 0; q < kWarpsK; ++q)
-            s += partial[((((q * kWarpsM + warp_m) * 2 + i) * kNF + j) * 4 +
-                          e) * 32 + lane];
-          sum[i][e] = s;
-        }
-      }
-      store_fragment<kNF>(sum, j, out, mult, bias, b, H, W, O, relu, row0,
-                          tx0, n0, lane);
+      for (int q = 0; q < kWarpsK; ++q)
+        s += partial[((((q * kWarpsM + warp_m) * 2 + i) * kNF + j) * 4 + e) *
+                         32 + lane];
+      sum[i][e] = s;
     }
   }
 }
 
-template <int kWarpsM, int kWarpsK, int kNF>
-int launch(const int8_t* x, const int8_t* w, const float* mult,
-           const float* bias, int8_t* out, int B, int H, int W, int C,
-           int c_pad, int O, int k, int relu, cudaStream_t stream) {
+// One input group (kMulti false: every CocoPoseNet and crop-net layer, and
+// BODY_25's single-input convs) or 1 to kMaxGroups groups (kMulti), each
+// with its own int32 sums folded into the float32 y in group order.  With
+// kMulti the K warps always meet in shared memory, and warp kw keeps the y
+// of its kNF / kWarpsK fragments j = kw, kw + kWarpsK, ... in registers
+// across the groups.  `tile_bytes`: the input tile's space, sized for the
+// widest group.
+template <int kWarpsM, int kWarpsK, int kNF, bool kMulti>
+__global__ void __launch_bounds__(Tile<kWarpsM, kWarpsK, kNF>::kThreads)
+conv_s8_kernel(Groups groups, int G, const float* __restrict__ bias,
+               const float* __restrict__ slope, int8_t* __restrict__ out,
+               int H, int W, int O, int k, int act, int tiles_w,
+               int tile_bytes) {
+  using T = Tile<kWarpsM, kWarpsK, kNF>;
+  extern __shared__ __align__(128) int8_t smem[];
+  int8_t* a_tile = smem;
+  int8_t* ring = smem + tile_bytes;
+  int* partial = reinterpret_cast<int*>(ring);
+  int* a_off = reinterpret_cast<int*>(ring + T::kMidBytes);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int warp_m = warp % kWarpsM;
+  const int kw = warp / kWarpsM;
+  const int ty0 = (blockIdx.x / tiles_w) * T::kTileH;
+  const int tx0 = (blockIdx.x % tiles_w) * kTileW;
+  const int n0 = blockIdx.y * T::kTileN;
+  const int b = blockIdx.z;
+  const int row0 = ty0 + warp_m * 2;
+  const int lane_n = 2 * (lane % 4);  // + n0 + 8 j: fragment j's channel
+
+  if constexpr (!kMulti) {
+    const int C = groups.c[0];
+    int acc[2][kNF][4];
+    group_sums<kWarpsM, kWarpsK, kNF>(
+        acc, groups.x[0] + (size_t)b * H * W * C, groups.w[0], H, W, C,
+        groups.c_pad[0], O, k, ty0, tx0, n0, a_tile, ring, a_off, warp_m, kw,
+        lane);
+    const float* mult = groups.mult[0];
+    if constexpr (kWarpsK == 1) {
+#pragma unroll
+      for (int j = 0; j < kNF; ++j) {
+        int sum[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[i][e] = acc[i][j][e];
+        float y[2][4];
+        scale_fragment(sum, mult, n0 + 8 * j + lane_n, y);
+        store_fragment(y, j, out, bias, slope, b, H, W, O, act, row0, tx0,
+                       n0, lane);
+      }
+    } else {
+      __syncthreads();  // the ring is free: it takes the partial sums
+      write_partials<kWarpsM, kWarpsK, kNF>(acc, partial, warp_m, kw, lane);
+      __syncthreads();
+      // Warp kw sums its N fragments over the K warps' partials.
+      for (int j = kw; j < kNF; j += kWarpsK) {
+        int sum[2][4];
+        sum_partials<kWarpsM, kWarpsK, kNF>(partial, j, warp_m, lane, sum);
+        float y[2][4];
+        scale_fragment(sum, mult, n0 + 8 * j + lane_n, y);
+        store_fragment(y, j, out, bias, slope, b, H, W, O, act, row0, tx0,
+                       n0, lane);
+      }
+    }
+  } else {
+    static_assert(kWarpsK > 1 && kNF % kWarpsK == 0,
+                  "grouped tiles split the N fragments over the K warps");
+    constexpr int kOwn = kNF / kWarpsK;
+    float y[kOwn][2][4];
+    for (int g = 0; g < G; ++g) {
+      const int C = groups.c[g];
+      int acc[2][kNF][4];
+      group_sums<kWarpsM, kWarpsK, kNF>(
+          acc, groups.x[g] + (size_t)b * H * W * C, groups.w[g], H, W, C,
+          groups.c_pad[g], O, k, ty0, tx0, n0, a_tile, ring, a_off, warp_m,
+          kw, lane);
+      __syncthreads();  // the ring is free: it takes the partial sums
+      write_partials<kWarpsM, kWarpsK, kNF>(acc, partial, warp_m, kw, lane);
+      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < kOwn; ++o) {
+        const int j = kw + o * kWarpsK;
+        int sum[2][4];
+        sum_partials<kWarpsM, kWarpsK, kNF>(partial, j, warp_m, lane, sum);
+        float part[2][4];
+        scale_fragment(sum, groups.mult[g], n0 + 8 * j + lane_n, part);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            y[o][i][e] = g == 0 ? part[i][e] : __fadd_rn(y[o][i][e],
+                                                         part[i][e]);
+      }
+      __syncthreads();  // the next group restages the tile and the ring
+    }
+#pragma unroll
+    for (int o = 0; o < kOwn; ++o)
+      store_fragment(y[o], kw + o * kWarpsK, out, bias, slope, b, H, W, O,
+                     act, row0, tx0, n0, lane);
+  }
+}
+
+template <int kWarpsM, int kWarpsK, int kNF, bool kMulti>
+int launch(const Groups& groups, int G, const float* bias,
+           const float* slope, int8_t* out, int B, int H, int W, int O, int k,
+           int act, cudaStream_t stream) {
   using T = Tile<kWarpsM, kWarpsK, kNF>;
   if (O % T::kTileN != 0) return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes<kWarpsM, kWarpsK, kNF>(k, c_pad);
-  auto kernel = conv_s8_kernel<kWarpsM, kWarpsK, kNF>;
+  // tpupose_torch/ops/conv_s8.py::smem_bytes computes the same budget: the
+  // haloed input tile at the widest group's pixel stride, the ring (or the
+  // partial sums), then one int per K unit of the widest group.
+  int max_cp = 0;
+  for (int g = 0; g < G; ++g)
+    if (groups.c_pad[g] > max_cp) max_cp = groups.c_pad[g];
+  const int r = k / 2;
+  const int tile_bytes =
+      (T::kTileH + 2 * r) * (kTileW + 2 * r) * (max_cp + 16);
+  const int smem =
+      tile_bytes + T::kMidBytes + 4 * (k * k * max_cp / kUnitK);
+  auto kernel = conv_s8_kernel<kWarpsM, kWarpsK, kNF, kMulti>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -426,38 +555,62 @@ int launch(const int8_t* x, const int8_t* w, const float* mult,
   const int tiles_w = (W + kTileW - 1) / kTileW;
   const int tiles_h = (H + T::kTileH - 1) / T::kTileH;
   const dim3 grid(tiles_w * tiles_h, O / T::kTileN, B);
-  kernel<<<grid, T::kThreads, smem, stream>>>(x, w, mult, bias, out, H, W, C,
-                                              c_pad, O, k, relu, tiles_w);
+  kernel<<<grid, T::kThreads, smem, stream>>>(
+      groups, G, bias, slope, out, H, W, O, k, act, tiles_w, tile_bytes);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// x: (B, H, W, C) int8; w: (k*k, O, c_pad) int8; mult, bias: (O,) float32;
-// out: (B, H, W, O) int8.  k is 1 or 3, c_pad a multiple of 32 and at least
-// C.  `tile` indexes ops/conv_s8.py::TILES (rows, K warps, channels):
-// 0 = (4, 4, 32), 1 = (8, 4, 32), 2 = (8, 2, 64), 3 = (8, 1, 64),
-// 4 = (16, 1, 64); O must be a multiple of the tile's channels.
-extern "C" int conv_s8_launch(const void* x, const void* w, const void* mult,
-                              const void* bias, void* out, int B, int H,
-                              int W, int C, int c_pad, int O, int k,
-                              int relu, int tile, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || O <= 0 ||
-      (k != 1 && k != 3) || c_pad % kUnitK != 0 || c_pad < C)
+// xs, ws, mults: G device pointers each (host arrays), to (B, H, W, c_g)
+// int8, (k*k, O, c_pad_g) int8 and (O,) float32; channels, c_pads: G ints
+// each (c_pad_g a multiple of 32 and at least c_g); bias: (O,) float32;
+// slope: (O,) float32 for act 2, else unused; out: (B, H, W, O) int8.  k
+// is 1 or 3; act 0 (none), 1 (ReLU) or 2 (PReLU).  `tile` indexes
+// ops/conv_s8.py::TILES (rows, K warps, channels): 0 = (4, 4, 32),
+// 1 = (8, 4, 32), 2 = (8, 2, 64), 3 = (8, 1, 64), 4 = (16, 1, 64); O must
+// be a multiple of the tile's channels.  More than one group takes tiles
+// 0 to 2 only.
+extern "C" int conv_s8_launch(const void* const* xs, const void* const* ws,
+                              const void* const* mults, const int* channels,
+                              const int* c_pads, int G, const void* bias,
+                              const void* slope, void* out, int B, int H,
+                              int W, int O, int k, int act, int tile,
+                              void* stream) {
+  if (G < 1 || G > kMaxGroups || B <= 0 || B > 65535 || H <= 0 || W <= 0 ||
+      O <= 0 || (k != 1 && k != 3) || act < kActNone || act > kActPrelu ||
+      (act == kActPrelu && slope == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int8_t* xs = (const int8_t*)x;
-  const int8_t* ws = (const int8_t*)w;
-  const float* m = (const float*)mult;
+  Groups groups = {};
+  for (int g = 0; g < G; ++g) {
+    if (channels[g] <= 0 || c_pads[g] % kUnitK != 0 ||
+        c_pads[g] < channels[g])
+      return (int)cudaErrorInvalidValue;
+    groups.x[g] = (const int8_t*)xs[g];
+    groups.w[g] = (const int8_t*)ws[g];
+    groups.mult[g] = (const float*)mults[g];
+    groups.c[g] = channels[g];
+    groups.c_pad[g] = c_pads[g];
+  }
   const float* bs = (const float*)bias;
+  const float* sl = (const float*)slope;
   int8_t* o = (int8_t*)out;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (G == 1) {
+    switch (tile) {
+      case 0: return launch<2, 4, 4, false>(groups, G, bs, sl, o, B, H, W, O, k, act, s);
+      case 1: return launch<4, 4, 4, false>(groups, G, bs, sl, o, B, H, W, O, k, act, s);
+      case 2: return launch<4, 2, 8, false>(groups, G, bs, sl, o, B, H, W, O, k, act, s);
+      case 3: return launch<4, 1, 8, false>(groups, G, bs, sl, o, B, H, W, O, k, act, s);
+      case 4: return launch<8, 1, 8, false>(groups, G, bs, sl, o, B, H, W, O, k, act, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (tile) {
-    case 0: return launch<2, 4, 4>(xs, ws, m, bs, o, B, H, W, C, c_pad, O, k, relu, s);
-    case 1: return launch<4, 4, 4>(xs, ws, m, bs, o, B, H, W, C, c_pad, O, k, relu, s);
-    case 2: return launch<4, 2, 8>(xs, ws, m, bs, o, B, H, W, C, c_pad, O, k, relu, s);
-    case 3: return launch<4, 1, 8>(xs, ws, m, bs, o, B, H, W, C, c_pad, O, k, relu, s);
-    case 4: return launch<8, 1, 8>(xs, ws, m, bs, o, B, H, W, C, c_pad, O, k, relu, s);
+    case 0: return launch<2, 4, 4, true>(groups, G, bs, sl, o, B, H, W, O, k, act, s);
+    case 1: return launch<4, 4, 4, true>(groups, G, bs, sl, o, B, H, W, O, k, act, s);
+    case 2: return launch<4, 2, 8, true>(groups, G, bs, sl, o, B, H, W, O, k, act, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -341,33 +341,51 @@ __global__ void __launch_bounds__(32) group_fold_kernel(
     out_score[o] = sc;
     out_count[o] = c;
   }
-  // the (S, J) row-major slots, coalesced, two a store (J is even): the
-  // created rows from the table ((s, j) of a lane's next pair advanced
-  // without a division), then the rest, contiguous, all -1
-  longlong2* pairs = (longlong2*)(out_slot + frame * S * J);
-  const int ds = 64 / J, dj = 64 - ds * J;
-  int s = 2 * lane / J, j = 2 * lane - s * J;
-#pragma unroll 4
-  for (int i = lane; i < created * J / 2; i += 32) {
-    pairs[i] = longlong2{table[j * SP + s], table[(j + 1) * SP + s]};
-    s += ds;
-    j += dj;
-    if (j >= J) {
-      j -= J;
-      ++s;
+  if (J & 1) {
+    // an odd J (BODY_25's 25 parts): the (S, J) row-major slots one a
+    // store, coalesced, (s, j) of a lane's next element advanced without
+    // a division; -1 past the created rows
+    int64_t* slots = out_slot + frame * S * J;
+    const int ds = 32 / J, dj = 32 - ds * J;
+    int s = lane / J, j = lane - s * J;
+    for (int i = lane; i < S * J; i += 32) {
+      slots[i] = s < created ? table[j * SP + s] : -1;
+      s += ds;
+      j += dj;
+      if (j >= J) {
+        j -= J;
+        ++s;
+      }
     }
-  }
+  } else {
+    // the (S, J) row-major slots, coalesced, two a store: the created rows
+    // from the table ((s, j) of a lane's next pair advanced without a
+    // division), then the rest, contiguous, all -1
+    longlong2* pairs = (longlong2*)(out_slot + frame * S * J);
+    const int ds = 64 / J, dj = 64 - ds * J;
+    int s = 2 * lane / J, j = 2 * lane - s * J;
 #pragma unroll 4
-  for (int i = created * J / 2 + lane; i < S * J / 2; i += 32)
-    pairs[i] = longlong2{-1, -1};
+    for (int i = lane; i < created * J / 2; i += 32) {
+      pairs[i] = longlong2{table[j * SP + s], table[(j + 1) * SP + s]};
+      s += ds;
+      j += dj;
+      if (j >= J) {
+        j -= J;
+        ++s;
+      }
+    }
+#pragma unroll 4
+    for (int i = created * J / 2 + lane; i < S * J / 2; i += 32)
+      pairs[i] = longlong2{-1, -1};
+  }
   if (lane == 0) out_suppressed[frame] = suppressed;
 }
 
 }  // namespace
 
 // Launches one warp per frame on `stream` and returns cudaGetLastError()
-// (0 on success).  limbs_from / limbs_to / spawns: L host ints each; J
-// even, at most 32; out_slot 16-byte aligned; S at most 1024.
+// (0 on success).  limbs_from / limbs_to / spawns: L host ints each; J at
+// most 32; out_slot 16-byte aligned; S at most 1024.
 extern "C" int group_fold_launch(
     const int64_t* a_slot, const int64_t* b_slot, const float* conn_score,
     const uint8_t* conn_valid, const float* peak_score, const int* limbs_from,
@@ -376,7 +394,7 @@ extern "C" int group_fold_launch(
     float* out_score, float* out_count, uint8_t* out_valid,
     int64_t* out_suppressed, void* stream) {
   if (B <= 0 || L <= 0 || L > GROUP_FOLD_MAX_LIMBS || K <= 0 || J <= 0 ||
-      J > 32 || (J & 1) || KP <= 0 || S <= 0 || S > 1024 ||
+      J > 32 || KP <= 0 || S <= 0 || S > 1024 ||
       ((uintptr_t)out_slot & 15))
     return (int)cudaErrorInvalidValue;
   Limbs limbs = {};

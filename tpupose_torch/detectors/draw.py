@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpupose_torch.config import FACE_LINES, FINGER_LINES, LIMBS
+from tpupose_torch.config import FACE_LINES, FINGER_LINES
+from tpupose_torch.topology import COCO18, Topology
 
 _LIMB_COLORS = [
     [0, 255, 0], [0, 255, 85], [0, 255, 170], [0, 255, 255], [0, 170, 255],
@@ -25,22 +26,35 @@ _JOINT_COLORS = [
 ]
 
 
-def draw_person_pose(orig_img: np.ndarray, poses) -> np.ndarray:
+def _colors(base, n: int):
+    """``n`` colors: ``base`` in order, repeated past its end (BODY_25 has
+    26 pairs and 25 parts, COCO 19 and 18)."""
+    return [base[i % len(base)] for i in range(n)]
+
+
+def draw_person_pose(orig_img: np.ndarray, poses,
+                     topology: Topology = COCO18) -> np.ndarray:
+    """(N, J, 3) poses over ``orig_img``: each pair of ``topology`` as a
+    line (the non-spawning shoulder-ear pairs are not drawn), each part as
+    a dot."""
     import cv2
 
     if len(poses) == 0:
         return orig_img
     canvas = orig_img.copy()
 
+    limb_colors = _colors(_LIMB_COLORS, topology.num_limbs)
     for pose in np.asarray(poses).round().astype(int):
-        for i, ((ja, jb), color) in enumerate(zip(LIMBS, _LIMB_COLORS)):
-            if i in (9, 13):  # don't draw shoulder-ear connections
+        for i, ((ja, jb), color) in enumerate(zip(topology.limbs,
+                                                  limb_colors)):
+            if i in topology.non_spawning:  # no shoulder-ear connections
                 continue
             if pose[ja][2] != 0 and pose[jb][2] != 0:
                 cv2.line(canvas, tuple(pose[ja][:2]), tuple(pose[jb][:2]),
                          color, 2)
+    joint_colors = _colors(_JOINT_COLORS, topology.num_joints)
     for pose in np.asarray(poses).round().astype(int):
-        for (x, y, v), color in zip(pose, _JOINT_COLORS):
+        for (x, y, v), color in zip(pose, joint_colors):
             if v != 0:
                 cv2.circle(canvas, (x, y), 3, color, -1)
     return canvas

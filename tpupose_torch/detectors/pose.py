@@ -1,13 +1,16 @@
 """PoseDetector (port of ``tpupose/detectors/pose.py``): the fast single-scale
 path, the precise multi-scale pyramid, and the w8a8 int8 forward.
 
-``detector(img) -> (poses, scores)`` with ``poses: (N, 18, 3)`` rows of
-``(x, y, 2)`` in original image pixels.
+``detector(img) -> (poses, scores)`` with ``poses: (N, J, 3)`` rows of
+``(x, y, 2)`` in original image pixels, J the parts of the architecture's
+skeleton (``models.ARCHS[arch].topology``: 18 for ``posenet``, 25 for
+``body25``), which the whole postprocess reads.
 
 Fast path, per frame: a host resize of the uint8 frame (numpy emulation of
-cv2's INTER_LINEAR, so no cv2 is needed), ``/255 - 0.5``, CocoPoseNet, an
-align-corners resize of the last stage's maps, then the whole postprocess
-on the detector's device, and one device-to-host copy of the result.
+cv2's INTER_LINEAR, so no cv2 is needed), ``/255 - 0.5``, the net
+(CocoPoseNet or BODY_25), an align-corners resize of the last stage's maps,
+then the whole postprocess on the detector's device, and one device-to-host
+copy of the result.
 Every entry point runs one batched postprocess per program (a frame axis
 in front of the maps, as the JAX package's ``vmap``); on the card it
 reads nothing back to the host, so ``submit`` only queues work and the
@@ -76,7 +79,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from tpupose_torch.config import INFERENCE, NUM_JOINTS, InferenceConfig
+from tpupose_torch.config import INFERENCE, InferenceConfig
 from tpupose_torch.models import ARCHS
 from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
@@ -152,7 +155,7 @@ def results_to_host(results: List[PoseResult]) -> List[PoseResult]:
 def emit_result(result: PoseResult, scale_x: float, scale_y: float,
                 warned: bool = False):
     """Rescale a ``PoseResult`` to original pixels and compact it to
-    (N, 18, 3) poses and (N,) scores.
+    (N, J, 3) poses and (N,) scores, J the result's parts.
 
     Returns ``(poses, scores, warned)``; thread ``warned`` back in to get at
     most one saturation warning per consumer.  A result still on a device
@@ -172,7 +175,8 @@ def emit_result(result: PoseResult, scale_x: float, scale_y: float,
             RuntimeWarning, stacklevel=4)
     valid = np.asarray(result.valid)
     if int(result.num_peaks) == 0 or not valid.any():
-        return np.empty((0, NUM_JOINTS, 3)), np.empty(0), warned
+        return (np.empty((0, result.poses.shape[-2], 3)), np.empty(0),
+                warned)
     poses = np.asarray(result.poses)[valid]
     scores = np.asarray(result.scores)[valid]
     present = poses[:, :, 2] > 0
@@ -201,7 +205,8 @@ class PoseDetector:
         or ``torch.bfloat16``, the network's compute dtype; the parameters
         are stored in it.  ``mesh``: ``detect_batch`` runs on it (every
         rank builds the detector; the device is the mesh's and the weights
-        are broadcast from rank 0)."""
+        are broadcast from rank 0).  ``arch="body25"`` has no weight
+        file yet: it takes its seeded weights only."""
         self.device = torch.device(mesh.device if mesh is not None
                                    else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -212,6 +217,10 @@ class PoseDetector:
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.model = ARCHS[arch](seed=seed, dtype=compute_dtype)
+        self.topology = self.model.topology
+        if arch == "body25" and (params is not None or weights_file):
+            raise ValueError("PoseDetector(arch='body25'): no weight loader "
+                             "for BODY_25 yet; it runs seeded weights")
         if params is not None:
             load_flax_params(self.model, params)
         elif weights_file:
@@ -377,7 +386,8 @@ class PoseDetector:
 
     def _maps(self, imgs_u8: np.ndarray, map_hw: Tuple[int, int]):
         """(B, H, W, 3) uint8 network-size frames -> channel-first
-        (B, 38, h, w) PAFs and (B, 19, h, w) heatmaps at ``map_hw``."""
+        (B, 2L, h, w) PAFs and (B, J + 1, h, w) heatmaps at ``map_hw``, per
+        the architecture's topology."""
         with annotate("pose.upload"):
             imgs = to_device(imgs_u8, self.device)
         with annotate("pose.forward"), float32_numerics(), torch.no_grad():
@@ -390,8 +400,8 @@ class PoseDetector:
         heatmaps at ``map_hw``."""
         x = preprocess_u8(imgs_u8)
         pafs, heatmaps = self._forward(x, weights)
-        paf = resize_chainer(pafs[-1], map_hw)      # (B, h, w, 38)
-        hm = resize_chainer(heatmaps[-1], map_hw)   # (B, h, w, 19)
+        paf = resize_chainer(pafs[-1], map_hw)      # (B, h, w, 2L)
+        hm = resize_chainer(heatmaps[-1], map_hw)   # (B, h, w, J + 1)
         return paf.permute(0, 3, 1, 2), hm.permute(0, 3, 1, 2)
 
     def _fast_fn(self, map_hw: Tuple[int, int]):
@@ -582,7 +592,7 @@ class PoseDetector:
 
     def _precise_scale_maps(self, imgs: np.ndarray):
         """(B, H, W, 3) uint8 original frames -> the scales' channel-last
-        (B, o_h, o_w, 38) PAFs and (B, o_h, o_w, 19) heatmaps, as two
+        (B, o_h, o_w, 2L) PAFs and (B, o_h, o_w, J + 1) heatmaps, as two
         lists, at the postprocess resolution ``(o_h, o_w)``, which is
         returned third."""
         orig_h, orig_w = imgs.shape[1:3]
@@ -661,15 +671,18 @@ class PoseDetector:
         return out, (orig_w / map_w, orig_h / map_h)
 
     def _postprocess(self, paf: torch.Tensor, hm: torch.Tensor) -> PoseResult:
-        """The postprocess of (..., 38, h, w) and (..., 19, h, w) maps, a
-        frame axis or none; ``img_len`` is the map width: the fast path's
-        map size, or the precise path's postprocess resolution."""
+        """The postprocess of (..., 2L, h, w) and (..., J + 1, h, w) maps
+        over the detector's topology, a frame axis or none; ``img_len`` is
+        the map width: the fast path's map size, or the precise path's
+        postprocess resolution."""
         with torch.no_grad():
-            return postprocess_pose(paf, hm, paf.shape[-1], self.cfg)
+            return postprocess_pose(paf, hm, paf.shape[-1], self.cfg,
+                                    self.topology)
 
     def compute_maps(self, orig_img: np.ndarray):
-        """The (pafs (38, h, w), heatmaps (19, h, w)) maps the postprocess
-        consumes for this frame, plus the map -> original scale factors."""
+        """The (pafs (2L, h, w), heatmaps (J + 1, h, w)) maps the
+        postprocess consumes for this frame, per the architecture, plus the
+        map -> original scale factors."""
         (paf, hm), scale = self._run(np.asarray(orig_img)[None],
                                      self.precise, postprocess=False)
         return (paf[0], hm[0]), scale
@@ -718,8 +731,9 @@ class PoseDetector:
         return all_gather_list(out, self.mesh.data_group)
 
     def compute_maps_batch(self, imgs: np.ndarray):
-        """``detect_batch``'s maps: numpy float32 (B, 38, h, w) PAFs and
-        (B, 19, h, w) heatmaps, the postprocess's input, plus the map ->
+        """``detect_batch``'s maps: numpy float32 (B, 2L, h, w) PAFs and
+        (B, J + 1, h, w) heatmaps (per the architecture), the postprocess's
+        input, plus the map ->
         original scale factors; on a mesh, the whole batch's on every
         rank."""
         (paf, hm), scale = self._run_batch(np.asarray(imgs),
@@ -768,6 +782,8 @@ def _check_replicated(qtree, mesh: Mesh) -> None:
             for a in spec[key]:
                 digest.update(np.ascontiguousarray(a).tobytes())
         digest.update(np.ascontiguousarray(spec["bias_eff"]).tobytes())
+        if "slope" in spec:
+            digest.update(np.ascontiguousarray(spec["slope"]).tobytes())
     for stage in sorted(qtree["part_scales"]):
         for a in qtree["part_scales"][stage]:
             digest.update(np.asarray(a, np.float64).tobytes())
@@ -785,7 +801,8 @@ def _check_replicated(qtree, mesh: Mesh) -> None:
 def _main(argv=None):
     """The JAX package's pose CLI:
     ``python -m tpupose_torch.detectors.pose posenet <npz> --img x.png
-    [--precise] [--device cpu]``"""
+    [--precise] [--device cpu]``; ``body25`` takes no weight file (its
+    seeded weights)."""
     import argparse
 
     import cv2
@@ -793,8 +810,9 @@ def _main(argv=None):
     from tpupose_torch.detectors.draw import draw_person_pose
 
     p = argparse.ArgumentParser(description="Pose detector")
-    p.add_argument("arch", choices=("posenet",))
-    p.add_argument("weights", help="weights file path (.npz)")
+    p.add_argument("arch", choices=("posenet", "body25"))
+    p.add_argument("weights", nargs="?",
+                   help="weights file path (.npz); none for body25")
     p.add_argument("--img", "-i", required=True, help="image file path")
     p.add_argument("--precise", action="store_true",
                    help="multi-scale precise inference")
@@ -810,7 +828,7 @@ def _main(argv=None):
     poses, _ = detector(img)
     print(f"{len(poses)} people")
     print(f"Saving result into {args.out}...")
-    cv2.imwrite(args.out, draw_person_pose(img, poses))
+    cv2.imwrite(args.out, draw_person_pose(img, poses, detector.topology))
 
 
 if __name__ == "__main__":

@@ -46,15 +46,40 @@ class ConvReLU(nn.Module):
         return F.relu(x) if self.relu else x
 
 
+class ConvPReLU(nn.Module):
+    """kxk conv (symmetric ``k // 2`` padding) + PReLU, one learned slope
+    per output channel (Caffe's ``PReLU`` with ``channel_shared: false``):
+    ``y < 0 ? slope_c * y : y``.  The slopes are parameters
+    (``<layer>.prelu.weight``), drawn by ``init_conv_weights``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3):
+        super().__init__()
+        self.conv = nn.Conv2d(in_features, features, kernel,
+                              padding=kernel // 2)
+        self.prelu = nn.PReLU(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.conv
+        if x.dtype == conv.weight.dtype:
+            return self.prelu(conv(x))
+        x = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                     padding=conv.padding)
+        return F.prelu(x, self.prelu.weight.to(x.dtype))
+
+
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2 / stride-2 max pooling, floor on odd sizes like Flax VALID."""
     return F.max_pool2d(x, 2, 2)
 
 
 def _chain(module: nn.Module, specs) -> None:
-    """Register ``(name, in, out, k[, relu])`` ConvReLU layers in order."""
+    """Register ``(name, in, out, k[, relu])`` ConvReLU layers in order;
+    ``relu="prelu"`` registers a ConvPReLU."""
     for name, cin, cout, k, *relu in specs:
-        module.add_module(name, ConvReLU(cin, cout, k, *relu))
+        if relu == ["prelu"]:
+            module.add_module(name, ConvPReLU(cin, cout, k))
+        else:
+            module.add_module(name, ConvReLU(cin, cout, k, *relu))
 
 
 class _Stem(nn.Module):
@@ -186,6 +211,9 @@ class SingleBranchCPM(nn.Module):
         return stack_stages(heatmaps)
 
 
+PRELU_SLOPES = (0.05, 0.45)   # the seeded slopes' uniform range
+
+
 @torch.no_grad()
 def init_conv_weights(model: nn.Module, seed: int) -> None:
     """Seeded draw of every conv, in module order, with Flax's default
@@ -193,16 +221,21 @@ def init_conv_weights(model: nn.Module, seed: int) -> None:
     kernels, a normal truncated at 2 sigma with variance 1/fan_in, and zero
     biases.  PyTorch's own default (uniform biases of +-1/sqrt(fan_in))
     leaves a 40-layer random net's maps flat and bias-dominated, with no
-    peaks to calibrate."""
+    peaks to calibrate.  A PReLU's slopes, after its conv's kernel from the
+    same generator, are uniform over ``PRELU_SLOPES`` per channel (Caffe's
+    constant 0.25 would hide a channel-indexing fault)."""
     gen = torch.Generator().manual_seed(seed)
-    for conv in model.modules():
-        if isinstance(conv, nn.Conv2d):
-            fan_in = conv.weight[0].numel()
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            fan_in = module.weight[0].numel()
             # Flax divides by the std of a unit normal truncated at +-2.
             std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(conv.weight, std=std, a=-2 * std,
+            nn.init.trunc_normal_(module.weight, std=std, a=-2 * std,
                                   b=2 * std, generator=gen)
-            conv.bias.zero_()
+            module.bias.zero_()
+        elif isinstance(module, nn.PReLU):
+            lo, hi = PRELU_SLOPES
+            module.weight.uniform_(lo, hi, generator=gen)
 
 
 def stack_stages(stage_outputs: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -10,6 +10,7 @@ from torch import nn
 
 from tpupose_torch.models.cpm import (RefineBranch, Stage1Branch, VGG19Stem,
                                       init_conv_weights, stack_stages)
+from tpupose_torch.topology import COCO18
 
 NUM_PAF_CHANNELS = 38      # 19 limbs x (x, y)
 NUM_HEATMAP_CHANNELS = 19  # 18 joints + background
@@ -25,6 +26,8 @@ class CocoPoseNet(nn.Module):
     models built with one seed are equal.  ``dtype`` is the compute dtype
     (float32 or bfloat16; the parameters stay float32, see ``cpm``).
     """
+
+    topology = COCO18
 
     def __init__(self, num_stages: int = 6, seed: int = 0,
                  dtype: torch.dtype = torch.float32):

@@ -22,16 +22,16 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from tpupose_torch.config import (LIMBS_FROM, LIMBS_TO, NON_SPAWNING_LIMBS,
-                                  NUM_JOINTS, InferenceConfig)
+from tpupose_torch.config import InferenceConfig
 from tpupose_torch.ops.paf import Connections
 from tpupose_torch.ops.peaks import Peaks
+from tpupose_torch.topology import COCO18, Topology
 
 
 class Subsets(NamedTuple):
     """Fixed-shape person-subset table.
 
-    joint_slot: (..., S, 18) int64 — peak slot per joint, -1 if absent
+    joint_slot: (..., S, J) int64 — peak slot per joint, -1 if absent
     score:      (..., S) float32 — accumulated peak + connection score
     count:      (..., S) float32 — joint count.  Float because the
                 reference's merge adds the connection score to it too
@@ -48,40 +48,44 @@ class Subsets(NamedTuple):
 
 
 def group_keypoints(connections: Connections, peaks: Peaks,
-                    cfg: InferenceConfig) -> Subsets:
+                    cfg: InferenceConfig,
+                    topology: Topology = COCO18) -> Subsets:
     """Fold all valid connections into subsets (the plain version, on
     every device; the pipeline calls ``ops/library.py::group_keypoints``)."""
     return fold_connections(connections.a_slot, connections.b_slot,
                             connections.score, connections.valid,
                             peaks.score, cfg.max_subsets,
                             cfg.n_subset_limbs_thresh,
-                            cfg.subset_score_thresh)
+                            cfg.subset_score_thresh, topology)
 
 
 def fold_connections(a_slot: torch.Tensor, b_slot: torch.Tensor,
                      conn_scores: torch.Tensor, conn_valid: torch.Tensor,
                      peak_score: torch.Tensor, max_subsets: int,
-                     n_subset_limbs_thresh, subset_score_thresh) -> Subsets:
+                     n_subset_limbs_thresh, subset_score_thresh,
+                     topology: Topology = COCO18) -> Subsets:
     """:func:`group_keypoints` on the tensors it reads: the connections'
     (..., L, K) slots, scores and validity, the peaks' (..., J, K) scores,
     and the config's table size and final filter; frame by frame over the
-    leading axes.  The plain version of ``ops/group_fold.py``'s kernel."""
+    leading axes.  Pair ``l`` joins parts ``topology.limbs[l]``.  The plain
+    version of ``ops/group_fold.py``'s kernel."""
     lead = a_slot.shape[:-2]
     if lead:
         frames = [_fold_frame(*(t.reshape(-1, *t.shape[-2:])[i] for t in (
             a_slot, b_slot, conn_scores, conn_valid, peak_score)),
-            max_subsets, n_subset_limbs_thresh, subset_score_thresh)
+            max_subsets, n_subset_limbs_thresh, subset_score_thresh,
+            topology)
             for i in range(int(np.prod(lead, dtype=np.int64)))]
         return Subsets(*(torch.stack(f).reshape(*lead, *f[0].shape)
                          for f in zip(*frames)))
     return _fold_frame(a_slot, b_slot, conn_scores, conn_valid, peak_score,
                        max_subsets, n_subset_limbs_thresh,
-                       subset_score_thresh)
+                       subset_score_thresh, topology)
 
 
 def _fold_frame(a_slot, b_slot, conn_scores, conn_valid, peak_score,
-                max_subsets, n_subset_limbs_thresh, subset_score_thresh
-                ) -> Subsets:
+                max_subsets, n_subset_limbs_thresh, subset_score_thresh,
+                topology: Topology) -> Subsets:
     """One frame's fold: (L, K) connections, (J, K) peak scores."""
     k = a_slot.shape[1]
     s_cap = max_subsets
@@ -99,8 +103,8 @@ def _fold_frame(a_slot, b_slot, conn_scores, conn_valid, peak_score,
     conn_scores = conn_scores.reshape(-1)
     rows = torch.arange(s_cap, device=dev)
 
-    joint_slot = torch.full((s_cap, NUM_JOINTS), -1, dtype=torch.long,
-                            device=dev)
+    joint_slot = torch.full((s_cap, topology.num_joints), -1,
+                            dtype=torch.long, device=dev)
     score = torch.zeros(s_cap, dtype=torch.float32, device=dev)
     count = torch.zeros(s_cap, dtype=torch.float32, device=dev)
     active = torch.zeros(s_cap, dtype=torch.bool, device=dev)
@@ -109,7 +113,7 @@ def _fold_frame(a_slot, b_slot, conn_scores, conn_valid, peak_score,
 
     for idx in order:
         limb = idx // k
-        ja, jb = int(LIMBS_FROM[limb]), int(LIMBS_TO[limb])
+        ja, jb = topology.limbs[limb]
         ind_a, ind_b = a_slot[idx], b_slot[idx]
         conn_score = conn_scores[idx]
         peak_score_a = peak_score[ja][ind_a]
@@ -166,7 +170,7 @@ def _fold_frame(a_slot, b_slot, conn_scores, conn_valid, peak_score,
             score = score + add
 
         # --- case 0: spawn a new subset (not for shoulder-ear limbs) ---
-        if limb not in NON_SPAWNING_LIMBS:
+        if limb not in topology.non_spawning:
             want_new = cnt == 0
             do_new = want_new & (n_created < s_cap)
             n_suppressed = n_suppressed + (want_new
@@ -190,7 +194,7 @@ def _fold_frame(a_slot, b_slot, conn_scores, conn_valid, peak_score,
 
 def subsets_to_poses(subsets: Subsets, peaks: Peaks
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Subset table -> (poses (..., S, 18, 3) of (x, y, v), person_valid
+    """Subset table -> (poses (..., S, J, 3) of (x, y, v), person_valid
     (..., S)).
 
     v = 2 for present joints; absent joints and invalid persons are zero

@@ -9,9 +9,10 @@ the wrapper, which launches the hand kernel or raises and counts the launch
 in its ``launches`` and ``shapes``, and whose CPU implementation is the
 plain version:
 
-- ``tpupose::blur_nms``, ``tpupose::conv7_s8``, ``tpupose::conv_s8`` and
-  ``tpupose::requant_epilogue``: ``ops/blur_nms.py``, ``ops/conv7.py``,
-  ``ops/conv_s8.py``, ``ops/requant.py``;
+- ``tpupose::blur_nms``, ``tpupose::conv7_s8``, ``tpupose::conv_s8``,
+  ``tpupose::requant_epilogue`` and ``tpupose::act_epilogue``:
+  ``ops/blur_nms.py``, ``ops/conv7.py``, ``ops/conv_s8.py``,
+  ``ops/requant.py`` (the last two one kernel);
 - ``tpupose::greedy_match``: ``ops/greedy_match.py`` (plain version
   ``ops/paf.py::greedy_match``), on (..., L, K, K) candidates, a frame
   axis or none.  As an op, the plain version's K = 32 unrolled steps
@@ -50,6 +51,7 @@ from tpupose_torch.ops import conv_s8 as _cs
 from tpupose_torch.ops import greedy_match as _gm
 from tpupose_torch.ops import group_fold as _gf
 from tpupose_torch.ops import requant as _rq
+from tpupose_torch.topology import COCO18, Topology, from_tables
 
 _ROUTE = threading.local()
 _LIB = torch.library.Library("tpupose", "DEF")
@@ -147,32 +149,39 @@ def conv7_s8(parts: Sequence[Tensor], kernels_q: Sequence[Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _conv_s8_cuda(x, kernel_q, mult, bias, relu, packed):
-    return _cs.conv_s8(x, kernel_q, mult, bias, relu=relu, packed=packed)
+def _conv_s8_cuda(parts, kernels_q, mults, bias, act, slope, packed):
+    return _cs.conv_s8(parts, kernels_q, mults, bias, act=act, slope=slope,
+                       packed=packed or None)
 
 
-def _conv_s8_cpu(x, kernel_q, mult, bias, relu, packed):
-    return _cs.conv_s8_reference(x, kernel_q, mult, bias, relu)
+def _conv_s8_cpu(parts, kernels_q, mults, bias, act, slope, packed):
+    return _cs.conv_s8_reference(parts, kernels_q, mults, bias, act, slope)
 
 
-def _conv_s8_fake(x, kernel_q, mult, bias, relu, packed):
-    b, h, w, _ = x.shape
-    return x.new_empty((b, h, w, kernel_q.shape[-1]), dtype=torch.int8)
+def _conv_s8_fake(parts, kernels_q, mults, bias, act, slope, packed):
+    b, h, w, _ = parts[0].shape
+    return parts[0].new_empty((b, h, w, kernels_q[0].shape[-1]),
+                              dtype=torch.int8)
 
 
-_define("conv_s8(Tensor x, Tensor kernel_q, Tensor mult, Tensor bias, "
-        "bool relu, Tensor? packed) -> Tensor",
+_define("conv_s8(Tensor[] parts, Tensor[] kernels_q, Tensor[] mults, "
+        "Tensor bias, str act, Tensor? slope, Tensor[] packed) -> Tensor",
         {"CUDA": _conv_s8_cuda, "CPU": _conv_s8_cpu}, _conv_s8_fake)
 
 
-def conv_s8(x: Tensor, kernel_q: Tensor, mult: Tensor, bias: Tensor,
-            relu: bool = True, packed: Optional[Tensor] = None) -> Tensor:
-    """``ops/conv_s8.py::conv_s8``, through ``tpupose::conv_s8`` when
-    traced."""
+def conv_s8(parts, kernels_q, mults, bias: Tensor, act: str = "relu",
+            slope: Optional[Tensor] = None, packed=None) -> Tensor:
+    """``ops/conv_s8.py::conv_s8`` (a tensor or a sequence of groups each
+    for ``parts``, ``kernels_q``, ``mults``, ``packed``), through
+    ``tpupose::conv_s8`` when traced (an empty ``packed`` list packs the
+    weights in the wrapper)."""
     if tracing():
-        return _OPS.conv_s8.default(x, kernel_q, mult, bias, bool(relu),
-                                    packed)
-    return _cs.conv_s8(x, kernel_q, mult, bias, relu=relu, packed=packed)
+        groups = _cs._as_groups
+        return _OPS.conv_s8.default(
+            list(groups(parts)), list(groups(kernels_q)), list(groups(mults)),
+            bias, act, slope, [] if packed is None else list(groups(packed)))
+    return _cs.conv_s8(parts, kernels_q, mults, bias, act=act, slope=slope,
+                       packed=packed)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +204,28 @@ def requant_epilogue(accs: Sequence[Tensor], mults: Sequence[Tensor],
         return _OPS.requant_epilogue.default(list(accs), list(mults), bias,
                                              bool(relu), float(lo))
     return _rq.requant_epilogue(accs, mults, bias, relu, lo)
+
+
+# ---------------------------------------------------------------------------
+# tpupose::act_epilogue
+# ---------------------------------------------------------------------------
+
+_define("act_epilogue(Tensor[] accs, Tensor[] mults, Tensor bias, str act, "
+        "Tensor? slope) -> Tensor",
+        {"CUDA": _rq.act_epilogue, "CPU": _rq.act_epilogue_reference},
+        lambda accs, mults, bias, act, slope: accs[0].new_empty(
+            accs[0].shape, dtype=torch.int8))
+
+
+def act_epilogue(accs: Sequence[Tensor], mults: Sequence[Tensor],
+                 bias: Tensor, act: str,
+                 slope: Optional[Tensor] = None) -> Tensor:
+    """``ops/requant.py::act_epilogue``, through ``tpupose::act_epilogue``
+    when traced."""
+    if tracing():
+        return _OPS.act_epilogue.default(list(accs), list(mults), bias, act,
+                                         slope)
+    return _rq.act_epilogue(accs, mults, bias, act, slope)
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +262,9 @@ def greedy_match(score: Tensor, valid: Tensor, n_a: Tensor, n_b: Tensor):
 
 def _group_keypoints_fake(a_slot, b_slot, conn_score, conn_valid, peak_score,
                           max_subsets, n_subset_limbs_thresh,
-                          subset_score_thresh):
-    from tpupose_torch.config import NUM_JOINTS
-
+                          subset_score_thresh, limbs_from, limbs_to, spawns):
     lead = a_slot.shape[:-2]
-    return (a_slot.new_empty((*lead, max_subsets, NUM_JOINTS),
+    return (a_slot.new_empty((*lead, max_subsets, peak_score.shape[-2]),
                              dtype=torch.long),
             conn_score.new_empty((*lead, max_subsets)),
             conn_score.new_empty((*lead, max_subsets)),
@@ -243,23 +272,37 @@ def _group_keypoints_fake(a_slot, b_slot, conn_score, conn_valid, peak_score,
             a_slot.new_empty(lead, dtype=torch.long))
 
 
+def _group_keypoints_impl(a_slot, b_slot, conn_score, conn_valid, peak_score,
+                          max_subsets, n_subset_limbs_thresh,
+                          subset_score_thresh, limbs_from, limbs_to, spawns):
+    topology = from_tables(peak_score.shape[-2], limbs_from, limbs_to,
+                           spawns)
+    return _gf.group_fold(a_slot, b_slot, conn_score, conn_valid, peak_score,
+                          max_subsets, n_subset_limbs_thresh,
+                          subset_score_thresh, topology)
+
+
 _define("group_keypoints(Tensor a_slot, Tensor b_slot, Tensor conn_score, "
         "Tensor conn_valid, Tensor peak_score, int max_subsets, "
-        "float n_subset_limbs_thresh, float subset_score_thresh) -> "
+        "float n_subset_limbs_thresh, float subset_score_thresh, "
+        "int[] limbs_from, int[] limbs_to, int[] spawns) -> "
         "(Tensor, Tensor, Tensor, Tensor, Tensor)",
-        {"CUDA": _gf.group_fold, "CPU": _gf.group_fold},
+        {"CUDA": _group_keypoints_impl, "CPU": _group_keypoints_impl},
         _group_keypoints_fake)
 
 
-def group_keypoints(connections, peaks, cfg):
-    """The fold of ``ops/group_fold.py`` (the kernel on CUDA tensors, the
-    plain ``ops/grouping.py::fold_connections`` on CPU ones), through
-    ``tpupose::group_keypoints`` when traced."""
+def group_keypoints(connections, peaks, cfg, topology: Topology = COCO18):
+    """The fold of ``ops/group_fold.py`` over ``topology``'s pairs (the
+    kernel on CUDA tensors, the plain ``ops/grouping.py::fold_connections``
+    on CPU ones), through ``tpupose::group_keypoints`` when traced, which
+    carries the pairs as integer tables."""
     from tpupose_torch.ops.grouping import Subsets
 
     args = (connections.a_slot, connections.b_slot, connections.score,
             connections.valid, peaks.score, int(cfg.max_subsets),
             float(cfg.n_subset_limbs_thresh), float(cfg.subset_score_thresh))
     if tracing():
-        return Subsets(*_OPS.group_keypoints.default(*args))
-    return Subsets(*_gf.group_fold(*args))
+        return Subsets(*_OPS.group_keypoints.default(
+            *args, [int(j) for j in topology.limbs_from],
+            [int(j) for j in topology.limbs_to], list(topology.spawns)))
+    return Subsets(*_gf.group_fold(*args, topology))

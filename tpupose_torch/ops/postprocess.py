@@ -17,16 +17,18 @@ from typing import NamedTuple
 
 import torch
 
-from tpupose_torch.config import LIMBS_FROM, LIMBS_TO, InferenceConfig
+from tpupose_torch.config import InferenceConfig
 from tpupose_torch.ops.grouping import subsets_to_poses
 from tpupose_torch.ops.library import group_keypoints
 from tpupose_torch.ops.paf import (compute_connections,
                                    compute_connections_from_rows)
 from tpupose_torch.ops.peaks import find_peaks
+from tpupose_torch.topology import COCO18, Topology
 
 
 class PoseResult(NamedTuple):
-    """poses: (..., S, 18, 3) [x, y, v]; scores: (..., S); valid: (..., S)
+    """poses: (..., S, J, 3) [x, y, v], J the topology's parts; scores:
+    (..., S); valid: (..., S)
     bool; num_peaks: (...) total peak count; the leading axes are the
     maps' frame axis, or none.
 
@@ -44,26 +46,30 @@ class PoseResult(NamedTuple):
 
 
 def postprocess_pose(pafs: torch.Tensor, heatmaps: torch.Tensor,
-                     img_len: float, cfg: InferenceConfig) -> PoseResult:
-    """pafs: (..., 38, H, W); heatmaps: (..., 19, H, W), at postprocess
-    resolution, with a frame axis (B, ...) or without.  ``img_len`` is the
-    map width, used by the PAF distance prior."""
+                     img_len: float, cfg: InferenceConfig,
+                     topology: Topology = COCO18) -> PoseResult:
+    """pafs: (..., 2L, H, W); heatmaps: (..., J + 1, H, W), per
+    ``topology``, at postprocess resolution, with a frame axis (B, ...) or
+    without.  ``img_len`` is the map width, used by the PAF distance
+    prior."""
     peaks = _peaks(heatmaps, cfg)
     connections = compute_connections(pafs, peaks, float(img_len), cfg,
-                                      LIMBS_FROM, LIMBS_TO)
-    return _finish(peaks, connections, cfg)
+                                      topology.limbs_from, topology.limbs_to)
+    return _finish(peaks, connections, cfg, topology)
 
 
 def postprocess_pose_from_rows(paf_rows: torch.Tensor,
                                heatmaps: torch.Tensor, hw, img_len: float,
-                               cfg: InferenceConfig) -> PoseResult:
+                               cfg: InferenceConfig,
+                               topology: Topology = COCO18) -> PoseResult:
     """:func:`postprocess_pose` on PAF sample rows: paf_rows (..., L, H*W,
-    2), limb-major (x, y) per pixel; heatmaps (..., 19, H, W); hw (H, W).
-    The same result, without the (38, H, W) -> rows transpose."""
+    2), limb-major (x, y) per pixel; heatmaps (..., J + 1, H, W); hw
+    (H, W).  The same result, without the (2L, H, W) -> rows transpose."""
     peaks = _peaks(heatmaps, cfg)
     connections = compute_connections_from_rows(
-        paf_rows, hw, peaks, float(img_len), cfg, LIMBS_FROM, LIMBS_TO)
-    return _finish(peaks, connections, cfg)
+        paf_rows, hw, peaks, float(img_len), cfg, topology.limbs_from,
+        topology.limbs_to)
+    return _finish(peaks, connections, cfg, topology)
 
 
 def _peaks(heatmaps: torch.Tensor, cfg: InferenceConfig):
@@ -72,8 +78,9 @@ def _peaks(heatmaps: torch.Tensor, cfg: InferenceConfig):
                       mode=cfg.nms_mode, ksize=cfg.ksize)
 
 
-def _finish(peaks, connections, cfg: InferenceConfig) -> PoseResult:
-    subsets = group_keypoints(connections, peaks, cfg)
+def _finish(peaks, connections, cfg: InferenceConfig,
+            topology: Topology) -> PoseResult:
+    subsets = group_keypoints(connections, peaks, cfg, topology)
     poses, person_valid = subsets_to_poses(subsets, peaks)
     return PoseResult(
         poses=poses,

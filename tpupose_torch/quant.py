@@ -20,14 +20,30 @@ there is none), so every layer is an exact integer matmul:
 - with ``conv7_impl="im2col"`` they run as im2col + ``torch._int_mm`` into
   int32, then the requantize epilogue ``ops/requant.py::requant_epilogue``
   (the CUDA kernel on the card, its plain version on the CPU);
-- the heads (float32 out, 38 or 19 channels) always run as im2col +
-  ``torch._int_mm`` and the float32 epilogue.
+- the heads (float32 out, per the architecture: 38 or 19 channels for
+  CocoPoseNet) always run as im2col + ``torch._int_mm`` and the float32
+  epilogue.
 
 Routing is by the tensors' device only; no grid-size threshold applies.
+
+``body25`` (OpenPose's BODY_25, ``models/body25.py``) extends the scheme to
+an architecture the JAX package does not have: its PAF-first stages of
+dense blocks, whose concatenations enter the next conv as one group per
+member at its own scale (``_0`` of each later block reads ``[_0, _1, _2]``
+of the block before, ``Mconv6`` the last block's, each stage's first conv
+``[feature, PAF(, heatmap)]``); and its PReLU layers, whose outputs are
+signed: a PReLU output is quantized symmetrically to [-127, 127] at ``a =
+range / 127``, and the epilogue applies the slope in output units, ``y <
+0 ? y * slope_c : y`` (exact: PReLU is positively homogeneous), before the
+rounding.  On the kernel route every non-head layer of BODY_25 runs on
+``conv_s8`` with its groups and activation; on the im2col route its
+PReLU layers finish on the same requantize epilogue with the slope
+(``ops/requant.py::act_epilogue``, ``csrc/requant.cu`` on the card).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -37,8 +53,10 @@ from torch import nn
 
 from tpupose_torch.ops.conv7 import im2col_acc_s8, pack_conv7_weights
 from tpupose_torch.ops.conv_s8 import pack_conv_s8_weights
-from tpupose_torch.ops.library import conv7_s8, conv_s8, requant_epilogue
+from tpupose_torch.ops.library import (act_epilogue, conv7_s8, conv_s8,
+                                      requant_epilogue)
 from tpupose_torch.ops.requant import scaled_sum
+from tpupose_torch.utils.profiling import annotate
 
 # ---------------------------------------------------------------------------
 # Architecture graphs (copies of the JAX module's): layer names are the
@@ -95,11 +113,58 @@ class ArchGraph:
         return _refine_branch(stage, suffix)
 
 
+@dataclasses.dataclass(frozen=True)
+class DenseArchGraph:
+    """Quantizer's view of BODY_25: the VGG-19 stem (its ``prelu`` layers
+    signed), then ``stages`` in forward order, each ``(module, width, mid,
+    inputs)`` as ``models/body25.py::STAGES``: ``dense_blocks`` dense
+    blocks of 3 PReLU convs, ``Mconv6`` (PReLU) and the float32 head
+    ``Mconv7``; a stage's input is the feature, then the listed stages'
+    heads.  ``spans``: the stem's, the PAF (``_L2``) stages' and the
+    heatmap (``_L1``) stages' profiler spans."""
+
+    stem: List[Tuple[str, bool]]
+    prelu: Tuple[str, ...]
+    stages: Tuple[Tuple[str, int, int, Tuple[str, ...]], ...]
+    dense_blocks: int
+    spans: Tuple[str, str, str]
+    two_branch: bool = True
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.stages)
+
+    def stage_layers(self, module: str) -> Tuple[str, ...]:
+        """A stage's layer names in forward order: the dense convs
+        ``Mconv{i}_stage{t}_{0,1,2}``, then ``Mconv6`` and ``Mconv7``."""
+        t = module[len("stage"):]              # "0_L2"
+        dense = tuple(f"Mconv{i}_stage{t}_{j}"
+                      for i in range(1, self.dense_blocks + 1)
+                      for j in range(3))
+        return dense + (f"Mconv6_stage{t}", f"Mconv7_stage{t}")
+
+
 ARCH_GRAPHS: Dict[str, ArchGraph] = {
     "posenet": ArchGraph(stem=VGG19_STEM, two_branch=True),
     "facenet": ArchGraph(stem=VGGFACE_STEM, two_branch=False),
     "handnet": ArchGraph(stem=VGGFACE_STEM, two_branch=False),
+    "body25": DenseArchGraph(
+        stem=VGG19_STEM, prelu=("conv4_3_CPM", "conv4_4_CPM"),
+        stages=(("stage0_L2", 96, 256, ()),
+                ("stage1_L2", 128, 512, ("stage0_L2",)),
+                ("stage2_L2", 128, 512, ("stage1_L2",)),
+                ("stage3_L2", 128, 512, ("stage2_L2",)),
+                ("stage0_L1", 96, 256, ("stage3_L2",)),
+                ("stage1_L1", 128, 512, ("stage0_L1", "stage3_L2"))),
+        dense_blocks=5,
+        spans=("b25.stem", "b25.paf_stages", "b25.cm_stages")),
 }
+
+
+def layer_act(meta: dict) -> str:
+    """A non-head layer's activation: ``"relu"`` (unsigned store, every
+    layer of the JAX package's nets) or ``"prelu"`` (signed store)."""
+    return meta.get("act", "relu")
 
 
 # ---------------------------------------------------------------------------
@@ -159,14 +224,16 @@ def _quantize_kernel(kernel: np.ndarray):
 
 def _layer_spec(params, module: str, layer: str,
                 groups: List[Tuple[float, float, int]],
-                relu: bool, a_out: Optional[float]):
+                a_out: Optional[float], act: str = "relu"):
     """Build one quantized conv layer's arrays.
 
     ``groups``: per input-channel group ``(a_in, z_in, n_channels)``; the
     concat entering each refinement stage keeps one group per member.
     ``a_out=None`` -> float32 output (head).  Folded epilogue:
     ``y = sum_g acc_g * mult_g + bias_eff`` in output-scale units (real
-    units for heads)."""
+    units for heads).  ``act``: ``"relu"`` (meta ``relu``), ``"none"``
+    (a head) or ``"prelu"``, which adds the layer's slopes and a signed
+    store (meta ``"act"``, which the JAX package's layers have not)."""
     conv = params[module][layer]["conv"]
     kernel = np.asarray(conv["kernel"], np.float32)
     bias = np.asarray(conv["bias"], np.float32)
@@ -188,32 +255,42 @@ def _layer_spec(params, module: str, layer: str,
         kqs.append(kq)
         mults.append(mult.astype(np.float32))
         splits.append(int(n))
-    return {
+    spec = {
         "kernel_q": tuple(kqs),
         "mult": tuple(mults),
         "bias_eff": bias_eff.astype(np.float32),
         "meta": {
             "ksize": int(kernel.shape[0]),
-            "relu": bool(relu),
+            "relu": act == "relu",
             "splits": tuple(splits),
             "f32_out": a_out is None,
         },
     }
+    if act == "prelu":
+        spec["slope"] = np.asarray(params[module][layer]["prelu"]["slope"],
+                                   np.float32)
+        spec["meta"]["act"] = "prelu"
+    return spec
 
 
 def model_params(model: nn.Module) -> Dict[str, dict]:
     """A torch CPM model's convs as the JAX package's param tree:
     ``params[module][layer]["conv"]`` with numpy HWIO ``kernel`` and
     ``bias``, float32 whatever the model's dtype (numpy has no
-    bfloat16)."""
+    bfloat16); a PReLU layer's slopes under
+    ``params[module][layer]["prelu"]["slope"]``."""
     params: Dict[str, dict] = {}
-    for name, conv in model.named_modules():
-        if isinstance(conv, nn.Conv2d):
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv2d):
             module, layer, _ = name.split(".")
-            params.setdefault(module, {})[layer] = {"conv": {
-                "kernel": conv.weight.detach().float().cpu().numpy()
+            params.setdefault(module, {}).setdefault(layer, {})["conv"] = {
+                "kernel": m.weight.detach().float().cpu().numpy()
                 .transpose(2, 3, 1, 0),
-                "bias": conv.bias.detach().float().cpu().numpy()}}
+                "bias": m.bias.detach().float().cpu().numpy()}
+        elif isinstance(m, nn.PReLU):
+            module, layer, _ = name.split(".")
+            params.setdefault(module, {}).setdefault(layer, {})["prelu"] = {
+                "slope": m.weight.detach().float().cpu().numpy()}
     return params
 
 
@@ -241,7 +318,7 @@ def quantize(arch: str, model: nn.Module, ranges: Dict[str, float],
     {kernel_q, mult, bias_eff}}, "part_scales": {stage: (a_head, ...)}}``;
     ``qtree_to_device`` makes the forward's tensors from it."""
     if input_quant is None:
-        input_quant = (1.0 / 255.0, 0.5) if arch == "posenet" \
+        input_quant = (1.0 / 255.0, 0.5) if arch in ("posenet", "body25") \
             else (1.0 / 256.0, 0.0)
     graph = ARCH_GRAPHS[arch]
     params = model_params(model)
@@ -256,23 +333,34 @@ def quantize(arch: str, model: nn.Module, ranges: Dict[str, float],
     meta: Dict[str, dict] = {}
     part_scales: Dict[str, tuple] = {}
 
-    def add(module: str, layer: str, groups, relu: bool,
-            a_out: Optional[float]) -> None:
-        spec = _layer_spec(params, module, layer, groups, relu, a_out)
+    def add(module: str, layer: str, groups, a_out: Optional[float],
+            act: str = "relu") -> None:
+        spec = _layer_spec(params, module, layer, groups, a_out, act)
         path = f"{module}/{layer}"
         meta[path] = spec.pop("meta")
         qlayers[path] = spec
 
     # stem: the input layer is the near-lossless image quant X = u8 - 128;
     # every later tensor is symmetric (z = 0)
+    prelu = graph.prelu if isinstance(graph, DenseArchGraph) else ()
     a_in, z_in = input_quant
     for name, _pool in graph.stem:
         a_out = a_of(f"stem/{name}")
         n_in = int(params["stem"][name]["conv"]["kernel"].shape[2])
-        add("stem", name, [(a_in, z_in, n_in)], relu=True, a_out=a_out)
+        add("stem", name, [(a_in, z_in, n_in)], a_out,
+            "prelu" if name in prelu else "relu")
         a_in, z_in = a_out, 0.0
     a_feat = a_in  # symmetric scale of the stem feature map
     feat_ch = out_channels("stem", graph.stem[-1][0])
+
+    if isinstance(graph, DenseArchGraph):
+        _quantize_dense_stages(graph, a_feat, feat_ch, a_of, add,
+                               out_channels, part_scales)
+        qtree = {"qlayers": qlayers, "part_scales": part_scales}
+        return qtree, QuantStatic(
+            arch=arch, layer_meta=meta, stem=tuple(graph.stem),
+            two_branch=True, num_stages=graph.num_stages,
+            input_a=float(input_quant[0]), input_z=float(input_quant[1]))
 
     num_stages = graph.num_stages
     for stage in range(1, num_stages + 1):
@@ -296,9 +384,9 @@ def quantize(arch: str, model: nn.Module, ranges: Dict[str, float],
             groups = in_groups
             for layer in layers[:-1]:
                 a_out = a_of(f"{module}/{layer}")
-                add(module, layer, groups, relu=True, a_out=a_out)
+                add(module, layer, groups, a_out)
                 groups = [(a_out, 0.0, out_channels(module, layer))]
-            add(module, layers[-1], groups, relu=False, a_out=None)
+            add(module, layers[-1], groups, None, "none")
 
     qtree = {"qlayers": qlayers, "part_scales": part_scales}
     static = QuantStatic(arch=arch, layer_meta=meta,
@@ -310,11 +398,40 @@ def quantize(arch: str, model: nn.Module, ranges: Dict[str, float],
     return qtree, static
 
 
+def _quantize_dense_stages(graph: DenseArchGraph, a_feat: float,
+                           feat_ch: int, a_of, add, out_channels,
+                           part_scales) -> None:
+    """BODY_25's stages into ``add``: each stage's input groups are the
+    feature and the listed stages' heads (quantized at their own scales,
+    recorded in ``part_scales[module]``); a dense block's ``_0`` reads the
+    block input's groups, ``_1`` and ``_2`` their predecessor; each later
+    block, and ``Mconv6``, reads ``[_0, _1, _2]`` as three groups."""
+    for module, width, mid, prev in graph.stages:
+        head_as = tuple(a_of(p) for p in prev)
+        part_scales[module] = tuple(np.float32(a) for a in head_as)
+        groups = [(a_feat, 0.0, feat_ch)] + [
+            (a, 0.0, out_channels(p, graph.stage_layers(p)[-1]))
+            for a, p in zip(head_as, prev)]
+        layers = graph.stage_layers(module)
+        for i in range(graph.dense_blocks):
+            block = []
+            for j in range(3):
+                layer = layers[3 * i + j]
+                a_out = a_of(f"{module}/{layer}")
+                add(module, layer, groups if j == 0 else [block[-1]], a_out,
+                    "prelu")
+                block.append((a_out, 0.0, width))
+            groups = block
+        a_mid = a_of(f"{module}/{layers[-2]}")
+        add(module, layers[-2], groups, a_mid, "prelu")
+        add(module, layers[-1], [(a_mid, 0.0, mid)], None, "none")
+
+
 def qtree_to_device(qtree, static: QuantStatic, device,
                     pack_kernels: bool = False):
     """The numpy tree as tensors on ``device``.  ``pack_kernels`` adds
-    each non-head layer's kernels in its CUDA kernel's layout: the 7x7
-    layers' under ``"conv7_packed"``, the others' under
+    each non-head layer's kernels in its CUDA kernel's layout, one per
+    group: the 7x7 layers' under ``"conv7_packed"``, the others' under
     ``"conv_s8_packed"``.  Head scales become 1-element tensors, so the
     division in ``_quant_sym`` is a true division on every device."""
     device = torch.device(device)
@@ -328,14 +445,16 @@ def qtree_to_device(qtree, static: QuantStatic, device,
         out = {"kernel_q": kernels,
                "mult": tuple(t(m) for m in spec["mult"]),
                "bias_eff": t(spec["bias_eff"])}
+        if "slope" in spec:
+            out["slope"] = t(spec["slope"])
         meta = static.layer_meta[path]
         if pack_kernels and not meta["f32_out"]:
             if meta["ksize"] == 7:
                 out["conv7_packed"] = tuple(pack_conv7_weights(k)
                                             for k in kernels)
             else:
-                (kernel,) = kernels
-                out["conv_s8_packed"] = pack_conv_s8_weights(kernel)
+                out["conv_s8_packed"] = tuple(pack_conv_s8_weights(k)
+                                              for k in kernels)
         qlayers[path] = out
     part_scales = {
         stage: tuple(t(np.asarray([a], np.float32)) for a in scales)
@@ -377,22 +496,27 @@ def _qconv(parts, spec, meta, conv7_impl: str = "im2col"):
 
     ``conv7_impl`` picks the non-head layers' route: ``"kernel"``, the
     fused CUDA kernels, ``conv7_s8`` for the 7x7 layers and ``conv_s8``
-    (one input group) for the 1x1 and 3x3 ones (on CPU tensors each runs
-    its plain version); ``"im2col"``, im2col + ``torch._int_mm`` + the
-    requantize epilogue.  Both are bit-equal.  The heads run as im2col +
+    (its input groups and activation) for the 1x1 and 3x3 ones (on CPU
+    tensors each runs its plain version); ``"im2col"``, im2col +
+    ``torch._int_mm`` + the requantize epilogue with the layer's
+    activation.  Both are bit-equal.  The heads run as im2col +
     ``torch._int_mm`` + the float32 epilogue on either route."""
+    act = layer_act(meta)
     if conv7_impl == "kernel" and not meta["f32_out"]:
         if meta["ksize"] == 7:
             return conv7_s8(parts, spec["kernel_q"], spec["mult"],
                             spec["bias_eff"], relu=meta["relu"],
                             packed=spec.get("conv7_packed"))
-        (x,), (kernel,), (mult,) = parts, spec["kernel_q"], spec["mult"]
-        return conv_s8(x, kernel, mult, spec["bias_eff"], relu=meta["relu"],
+        return conv_s8(parts, spec["kernel_q"], spec["mult"],
+                       spec["bias_eff"], act=act, slope=spec.get("slope"),
                        packed=spec.get("conv_s8_packed"))
     accs = [im2col_acc_s8(xq, kq)
             for xq, kq in zip(parts, spec["kernel_q"])]
     if meta["f32_out"]:
         return scaled_sum(accs, spec["mult"], spec["bias_eff"])
+    if act != "relu":   # signed store: PReLU outputs occupy [-127, 127]
+        return act_epilogue(accs, spec["mult"], spec["bias_eff"], act,
+                            spec.get("slope"))
     # symmetric store in output-scale units: ReLU outputs occupy [0, 127]
     return requant_epilogue(accs, spec["mult"], spec["bias_eff"],
                             relu=meta["relu"], lo=0.0)
@@ -442,16 +566,20 @@ def quant_apply(static: QuantStatic, qtree, x: torch.Tensor,
         # the kernels take contiguous tensors
         return out.narrow(1, ext[0][1], rows).contiguous()
 
+    graph = ARCH_GRAPHS[static.arch]
+    dense = isinstance(graph, DenseArchGraph)
     # lossless input quantization: X = u8 - 128 (see ``quantize``)
     xq = torch.clamp(torch.round(x / static.input_a - static.input_z),
                      -128.0, 127.0).to(torch.int8)
-    for name, pool in static.stem:
-        xq = run("stem", name, (xq,))
-        if pool:
-            xq = _max_pool_s8(xq)
+    with annotate(graph.spans[0]) if dense else contextlib.nullcontext():
+        for name, pool in static.stem:
+            xq = run("stem", name, (xq,))
+            if pool:
+                xq = _max_pool_s8(xq)
     feat_q = xq  # symmetric; its scale is folded into every consumer
+    if dense:
+        return _dense_stages(graph, qtree, feat_q, run)
 
-    graph = ARCH_GRAPHS[static.arch]
     heads: List[List[torch.Tensor]] = []  # per stage: [h1(, h2)]
     for stage in range(1, static.num_stages + 1):
         modules = graph.stage_modules(stage)
@@ -475,6 +603,31 @@ def quant_apply(static: QuantStatic, qtree, x: torch.Tensor,
         hms = torch.stack([h[1] for h in heads])
         return pafs, hms
     return torch.stack([h[0] for h in heads])
+
+
+def _dense_stages(graph: DenseArchGraph, qtree, feat_q: torch.Tensor, run):
+    """BODY_25's stages on the int8 feature, ``run(module, layer, parts)``
+    running one layer: the PAF stages, then the heatmap stages, each in
+    its span; returns the stacked float32 heads ``(pafs, heatmaps)``."""
+    heads: Dict[str, torch.Tensor] = {}
+    for span, branch in zip(graph.spans[1:], ("_L2", "_L1")):
+        with annotate(span):
+            for module, _, _, prev in graph.stages:
+                if not module.endswith(branch):
+                    continue
+                scales = qtree["part_scales"][module]
+                parts = (feat_q,) + tuple(
+                    _quant_sym(heads[p], a) for p, a in zip(prev, scales))
+                layers = graph.stage_layers(module)
+                for i in range(graph.dense_blocks):
+                    a = run(module, layers[3 * i], parts)
+                    b = run(module, layers[3 * i + 1], (a,))
+                    parts = (a, b, run(module, layers[3 * i + 2], (b,)))
+                mid = run(module, layers[-2], parts)
+                heads[module] = run(module, layers[-1], (mid,))
+    return tuple(torch.stack([heads[m] for m, *_ in graph.stages
+                              if m.endswith(branch)])
+                 for branch in ("_L2", "_L1"))
 
 
 def make_quant_apply(static: QuantStatic, qtree, conv7_impl: str = "im2col"):
