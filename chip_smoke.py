@@ -5,10 +5,11 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. Print the card (``nvidia-smi`` name and power limit) and build the seven
+1. Print the card (``nvidia-smi`` name and power limit) and build the eight
    CUDA kernels from ``tpupose_torch/csrc/`` (``blur_nms.cu``,
    ``conv7_s8.cu``, ``conv_s8.cu``, ``requant.cu``, ``greedy_match.cu``,
-   ``group_fold.cu``, ``resize_u8.cu``), one ``nvcc`` per source, in
+   ``group_fold.cu``, ``resize_u8.cu``, ``crop_tail.cu``), one ``nvcc`` per
+   source, in
    parallel, beside ``nvcc -Xptxas -v`` on all but ``requant.cu``
    (registers, shared memory and spills of each of their kernels,
    printed).
@@ -98,7 +99,9 @@ counters; greedy_match and group_fold on planted tables of each shape).
    fixed boxes to 2 faces, 2 left and 2 right hands) through
    ``detect_batch``, f32, then int8 after ``quantize`` on those crops.
    Checks 25 conv7, 21 conv_s8 and no requant launches per int8 crop
-   forward, one ``resize_u8`` launch per request of up to 64 crops,
+   forward, one ``resize_u8`` and one ``crop_tail`` launch per request of
+   up to 64 crops (one ``crop_tail`` launch a crop through phase 9's crop
+   bundle, whose tail programs take one crop each),
    conv7 at groups (71, 128) and (22, 128), every kernel at every
    shape the path gave it, and, on the fixed boxes' 2 faces and a left
    and a right hand (the random poses cut crops of 550-1700 px, too large
@@ -114,7 +117,12 @@ counters; greedy_match and group_fold on planted tables of each shape).
    frames give (0, 18, 3) tables on the fast, precise and int8 paths.
    The crop resize kernel (``check_resize_u8``) bit-equal to its plain
    version and to numpy's ``resize_u8_linear``, and timed at the hand
-   cell's request beside its bound, its plain version and numpy.
+   cell's request beside its bound, its plain version and numpy.  The
+   crop tail kernel (``check_crop_tail``) bit-equal to its plain version
+   on seeded and on plateau maps at the hand cell's request, face
+   requests (C = 71), 64 and 65 crops, sides below the blur's radius and
+   of 2,048 px and radii 32 and 48, and timed at the hand cell's request
+   beside its bound, its plain version and the old per-crop tail.
    Phase 6 also checks ``detect_precise`` against ``__call__``.  Prints
    the crop forwards' times (CUDA events, B = 1 and 8) and
    ``detect_batch``'s host time per crop.
@@ -1035,9 +1043,11 @@ def check_path_shapes(label, cfg, shapes):
     import numpy as np
     import torch
 
+    from tpupose_torch.config import HandConfig
     from tpupose_torch.ops import blur_nms as bn
     from tpupose_torch.ops import conv7 as c7
     from tpupose_torch.ops import conv_s8 as cs
+    from tpupose_torch.ops import crop_tail as ct
     from tpupose_torch.ops import greedy_match as gm
     from tpupose_torch.ops import group_fold as gf
     from tpupose_torch.ops import paf
@@ -1107,8 +1117,24 @@ def check_path_shapes(label, cfg, shapes):
             raise AssertionError(f"{label}: resize_u8 disagrees on "
                                  f"{len(items)} images {items[:4]}... to "
                                  f"{out_h}x{out_w}")
+    tails = sorted(shapes.get("crop_tails", {}))
+    crop_cfg = HandConfig()
+    for h, w, c, items in tails:
+        targets = [(th, tw) for th, tw, _ in items]
+        flips = [f for *_, f in items]
+        for maps in (_crop_maps(rng, len(items), h, w, c),
+                     _crop_plateau_maps(len(items), h, w, c)):
+            args = (maps, targets, flips, crop_cfg.gaussian_sigma,
+                    crop_cfg.heatmap_peak_thresh)
+            if not torch.equal(ct.crop_tails(*args),
+                               ct.crop_tails_plain(*args)):
+                raise AssertionError(f"{label}: crop_tails disagrees on "
+                                     f"{len(items)} crops of ({h}, {w}, "
+                                     f"{c}) maps {items[:4]}...")
     torch.cuda.synchronize()
     sides = [s for *_, items in resizes for h, w, _ in items for s in (h, w)]
+    tail_sides = [s for *_, items in tails for th, tw, _ in items
+                  for s in (th, tw)]
     print(f"{label}: every kernel bit-equal to its plain version at every "
           f"shape the path gave it: blur_nms "
           f"{sorted(shapes['blur_nms'])}, conv7_s8 "
@@ -1121,7 +1147,34 @@ def check_path_shapes(label, cfg, shapes):
           f"resize_u8_linear {len(resizes)} batches of "
           f"{sum(len(items) for *_, items in resizes)} images (sides "
           f"{min(sides, default=None)}-{max(sides, default=None)}, to "
-          f"{sorted({(h, w) for h, w, _ in resizes})})")
+          f"{sorted({(h, w) for h, w, _ in resizes})}), crop_tails "
+          f"{len(tails)} batches of {sum(len(items) for *_, items in tails)} "
+          f"crops (maps {sorted({key[:3] for key in tails})}, target sides "
+          f"{min(tail_sides, default=None)}-{max(tail_sides, default=None)})")
+
+
+def _crop_maps(rng, b, h, w, c):
+    """Seeded (B, h, w, C) float32 crop maps on the card, a few peaks a
+    channel."""
+    import numpy as np
+    import torch
+
+    maps = rng.rand(b, h, w, c).astype(np.float32) * 0.2
+    for i in range(b):
+        for ch in range(c):
+            maps[i, rng.randint(0, h), rng.randint(0, w), ch] += \
+                rng.uniform(0.2, 1.0)
+    return torch.from_numpy(maps).cuda()
+
+
+def _crop_plateau_maps(b, h, w, c):
+    """Crop maps of one value a channel, on the card: their resized and
+    blurred values differ only by rounding, so a change in the order of
+    the arithmetic moves the first maximum."""
+    import torch
+
+    values = 0.1 + 0.0371 * torch.arange(c, dtype=torch.float32)
+    return values.expand(b, h, w, c).contiguous().cuda()
 
 
 def _numel(requant_key):
@@ -1566,6 +1619,7 @@ def _wrappers():
     from tpupose_torch.ops import blur_nms as bn
     from tpupose_torch.ops import conv7 as c7
     from tpupose_torch.ops import conv_s8 as cs
+    from tpupose_torch.ops import crop_tail as ct
     from tpupose_torch.ops import greedy_match as gm
     from tpupose_torch.ops import group_fold as gf
     from tpupose_torch.ops import requant as rq
@@ -1574,7 +1628,8 @@ def _wrappers():
     return {"blur_nms": bn.blur_nms, "conv7_s8": c7.conv7_s8,
             "conv_s8": cs.conv_s8, "requant_epilogue": rq.requant_epilogue,
             "greedy_match": gm.greedy_match, "group_fold": gf.group_fold,
-            "resize_u8_linear": rs.resize_u8_linear_batch}
+            "resize_u8_linear": rs.resize_u8_linear_batch,
+            "crop_tails": ct.crop_tails}
 
 
 def _reset_counts():
@@ -2069,6 +2124,7 @@ def run_crop_nets(f32_det, cfg, frames):
     from tpupose_torch.detectors import FaceDetector, HandDetector
     from tpupose_torch.detectors.crop_keypoints import preprocess_crops_u8
     from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.ops import crop_tail as ct
     from tpupose_torch.ops import resize as rs
     from tpupose_torch.utils.calibrate import calibrate_crop_output_conv
 
@@ -2135,6 +2191,13 @@ def run_crop_nets(f32_det, cfg, frames):
                 25, 21, 0):
             raise AssertionError(f"int8 {label} forward launches {per}, not "
                                  f"25 conv7 and 21 conv_s8")
+    tails = (per_face["crop_tails"], per_hand["crop_tails"])
+    want = (-(-len(faces) // ct.MAX_ITEMS), -(-len(hands) // ct.MAX_ITEMS))
+    print(f"crop path: crop_tails launches over one int8 face and one hand "
+          f"request {tails} (want {want})")
+    if tails != want:
+        raise AssertionError("the crop requests did not run their tails "
+                             "in one launch a request")
     if counts["blur_nms"] < len(frames):
         raise AssertionError(f"the cascade's pose steps launched blur_nms "
                              f"{counts['blur_nms']} times")
@@ -2314,6 +2377,132 @@ def check_resize_u8():
           f"wrapper's host enqueue {enqueue_ms!r} ms; on the host, packing "
           f"into pinned memory {pack_ms!r} ms, packing and copying "
           f"{upload_ms!r} ms, to_device of a pageable pack {staged_ms!r} ms")
+    return err, times["kernel"], times["plain"], (bound, bound_by)
+
+
+def crop_tail_bound(h, w, c, targets, taps):
+    """The crop tail's bound: the maps read once and the rows written once
+    over the memory rate; and per keypoint channel and crop the float32
+    instructions that bit-equality keeps apart, at the non-FMA rate: a
+    multiply and an FMA per resized value of each pass (th x w, then
+    th x tw), taps multiplies and taps - 1 adds per output of each blur
+    pass, and a comparison per output."""
+    n_bytes = len(targets) * (h * w * c + 4 * (c - 1)) * 4
+    ops = (c - 1) * sum(2 * th * w + th * tw * (2 + 2 * (2 * taps - 1) + 1)
+                        for th, tw in targets)
+    return _bound(n_bytes, ops, F32_NONFMA_OPS_PER_S)
+
+
+def _per_crop_tails(maps, targets, flips, sigma, thresh):
+    """The crop tail as it ran before ``crop_tails``: crop by crop,
+    ``tail_maps`` (a matmul resize and a flip) and
+    ``global_argmax_keypoints``, ~100 launches a crop."""
+    import torch
+
+    from tpupose_torch.detectors.crop_keypoints import CropKeypointDetector
+    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.ops.peaks import global_argmax_keypoints
+
+    rows = []
+    with float32_numerics():
+        for hm, target, flip in zip(maps, targets, flips):
+            x, y, score, valid = global_argmax_keypoints(
+                CropKeypointDetector.tail_maps(hm, target, flip), sigma,
+                thresh)
+            rows.append(torch.stack([x.float(), y.float(), score,
+                                     valid.float()]))
+    return torch.stack(rows)
+
+
+def check_crop_tail():
+    """Phase 8, the crop tail kernel (``csrc/crop_tail.cu``): bit-equal to
+    its plain version on the card, on seeded and on plateau maps (one value
+    a channel: every rounding moves the first maximum), at the hand cell's
+    request (8 crops of 64-192 px, half mirrored, C = 22), face requests
+    (C = 71, non-square), 64 and 65 crops (two launches), sides below the
+    blur's radius, 2,048-px sides and radii 32 and 48 (the run-time-tap
+    kernel; 48 the widest halo); the old per-crop tail's keypoints equal at
+    the hand request.  There: its time from CUDA-graph replays beside its
+    bound, the plain version's and the old per-crop tail's by CUDA events,
+    and the host times of its enqueue and the old tail's.  Returns its
+    record, with the largest |kernel - plain| as its error."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.config import HandConfig
+    from tpupose_torch.ops import crop_tail as ct
+
+    cfg = HandConfig()
+    sigma, thresh = cfg.gaussian_sigma, cfg.heatmap_peak_thresh
+    rng = np.random.RandomState(18)
+
+    def square(n, lo, hi):
+        return [(int(s), int(s)) for s in rng.randint(lo, hi + 1, n)]
+
+    hand = (square(8, 64, 192), [i % 2 == 0 for i in range(8)], 22, sigma)
+    cases = [hand,
+             ([tuple(int(v) for v in hw)
+               for hw in rng.randint(40, 300, (8, 2))],
+              [False, True] * 4, 71, sigma),
+             (square(64, 1, 40), list(rng.randint(0, 2, 64)), 22, sigma),
+             (square(65, 1, 40), list(rng.randint(0, 2, 65)), 71, sigma),
+             ([(3, 5), (1, 1), (7, 2), (1, 20)], [True, False, True, True],
+              22, sigma),
+             ([(2048, 48), (31, 2048), (2048, 2048)], [False, True, True],
+              22, sigma),
+             ([(64, 97), (5, 150)], [True, False], 22, 8.0),
+             ([(64, 97), (5, 150)], [False, True], 22, 11.9)]
+    err = 0.0
+    for targets, flips, c, case_sigma in cases:
+        flips = [bool(f) for f in flips]
+        for maps in (_crop_maps(rng, len(targets), 46, 46, c),
+                     _crop_plateau_maps(len(targets), 46, 46, c)):
+            before = ct.crop_tails.launches
+            got = ct.crop_tails(maps, targets, flips, case_sigma, thresh)
+            launches = ct.crop_tails.launches - before
+            plain = ct.crop_tails_plain(maps, targets, flips, case_sigma,
+                                        thresh)
+            case_err = (got - plain).abs().max().item()
+            if not torch.equal(got, plain) or \
+                    launches != -(-len(targets) // ct.MAX_ITEMS):
+                raise AssertionError(
+                    f"crop_tail disagrees on {len(targets)} crops, C {c}, "
+                    f"sigma {case_sigma} by {case_err} in {launches} "
+                    f"launches")
+            err = max(err, case_err)
+    radii = sorted({ct._taps(s)[1] for *_, s in cases})
+    print(f"crop_tail: bit-equal to its plain version on {len(cases)} "
+          f"requests x 2 map sets ({sum(len(t) for t, *_ in cases)} crops; "
+          f"65 crops in 2 launches; radii {radii}), largest difference "
+          f"{err}")
+
+    targets, flips, c, _ = hand
+    maps = _crop_maps(rng, 8, 46, 46, c)
+    args = (maps, targets, flips, sigma, thresh)
+    got = ct.crop_tails(*args)
+    old = _per_crop_tails(*args)
+    if not (torch.equal(got[:, [0, 1, 3]], old[:, [0, 1, 3]])
+            and (got[:, 2] - old[:, 2]).abs().max().item() <= 1e-5):
+        raise AssertionError("crop_tail's keypoints differ from the old "
+                             "per-crop tail's at the hand request")
+    times = {"kernel": _graph_ms(lambda: ct.crop_tails(*args), 20),
+             "plain": _cuda_ms(lambda: ct.crop_tails_plain(*args), 3),
+             "per_crop": _cuda_ms(lambda: _per_crop_tails(*args), 3)}
+    host = {"kernel_enqueue": _enqueue_ms(lambda: ct.crop_tails(*args),
+                                          200),
+            "per_crop_enqueue": _enqueue_ms(lambda: _per_crop_tails(*args),
+                                            5),
+            "kernel_call": _host_ms(lambda: ct.crop_tails(*args), 20),
+            "per_crop_call": _host_ms(lambda: _per_crop_tails(*args), 5)}
+    bound, bound_by = crop_tail_bound(46, 46, c, targets,
+                                      len(ct._taps(sigma)[0]))
+    print(f"crop_tail hand request (sides {sorted(t for t, _ in targets)}, "
+          f"4 mirrored, (8, 46, 46, 22) maps, radius 10): kernel "
+          f"{times['kernel']!r} ms (CUDA-graph replays of 20 calls), plain "
+          f"{times['plain']!r} ms, the old per-crop tail "
+          f"{times['per_crop']!r} ms (CUDA events over eager calls), bound "
+          f"{bound!r} ms ({bound_by}); host ms: "
+          + json.dumps(host))
     return err, times["kernel"], times["plain"], (bound, bound_by)
 
 
@@ -2733,7 +2922,9 @@ def _serve_crop_bundle(face, path, cfg, frames, numbers):
     if got != want or srv.detect_crops(crops) != want:
         raise AssertionError("int8 face crop bundle: keypoints != the live "
                              "crop detector's")
-    if (counts["conv7_s8"], counts["conv_s8"]) != (25, 21):
+    # the bundle runs one exported tail program, one launch, a crop
+    if (counts["conv7_s8"], counts["conv_s8"], counts["crop_tails"]) != (
+            25, 21, len(crops)):
         raise AssertionError(f"int8 face crop bundle launched {counts}")
     check_path_shapes("crop bundle", cfg, shapes)
     print(f"int8 face crop bundle {crops[0].shape[:2]}: export "
@@ -4202,10 +4393,11 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = {name: _start_resource_report(name)
                for name in ("blur_nms", "conv7_s8", "conv_s8",
-                            "greedy_match", "group_fold", "resize_u8")}
+                            "greedy_match", "group_fold", "resize_u8",
+                            "crop_tail")}
     libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "conv_s8",
                                   "requant", "greedy_match", "group_fold",
-                                  "resize_u8"])
+                                  "resize_u8", "crop_tail"])
     print(f"built {sorted(libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
@@ -4235,6 +4427,7 @@ def main() -> int:
     t1 = time.perf_counter()
     check_crop_kernels(cfg)
     resize_record = check_resize_u8()
+    tail_record = check_crop_tail()
     t2 = time.perf_counter()
     check_tiny_frames(cfg, frames)
     print(f"phase 8: crop nets {t1 - t0:.2f} s, kernels {t2 - t1:.2f} s, "
@@ -4289,6 +4482,10 @@ def main() -> int:
         ("resize_u8_linear", "tpupose_torch/csrc/resize_u8.cu",
          "none (host cv2.resize, tpupose/detectors/crop_keypoints.py:214)",
          resize_record),
+        # no TPU kernel: the JAX package runs the crop tails as plain XLA
+        ("crop_tails", "tpupose_torch/csrc/crop_tail.cu",
+         "none (plain XLA, tpupose/detectors/crop_keypoints.py:140)",
+         tail_record),
     ]
     fusions = {"conv_s8": "requant_epilogue fused into an s8 implicit GEMM "
                           "for the 1x1 and 3x3 int8 layers (kernel route)",

@@ -721,6 +721,155 @@ def test_crop_detector_resizes_on_the_card_once_a_request(cuda_device, arch):
                 assert abs(gk[2] - rk[2]) <= 1e-5 * max(abs(rk[2]), 1.0)
 
 
+# --- the crop tail kernel (csrc/crop_tail.cu) --------------------------------
+
+
+def _crop_tail_maps(b, h, w, c, seed, device, plateau=False):
+    """Seeded (B, h, w, C) float32 crop maps, a few peaks a channel; or, as
+    a plateau, one value a channel, where the first maximum moves with any
+    change in the order of the arithmetic."""
+    if plateau:
+        values = 0.1 + 0.0371 * np.arange(c, dtype=np.float32)
+        maps = np.broadcast_to(values, (b, h, w, c)).copy()
+    else:
+        rng = np.random.RandomState(seed)
+        maps = rng.rand(b, h, w, c).astype(np.float32) * 0.2
+        for i in range(b):
+            for ch in range(c):
+                maps[i, rng.randint(0, h), rng.randint(0, w), ch] += \
+                    rng.uniform(0.2, 1.0)
+    return torch.from_numpy(maps).to(device)
+
+
+def _tails_on_card(maps, targets, flips, sigma=2.5, thresh=0.1):
+    """The kernel's rows bit-equal to the plain version's on the card;
+    returns the launches it took."""
+    from tpupose_torch.ops import crop_tail as ct
+
+    before = ct.crop_tails.launches
+    got = ct.crop_tails(maps, targets, flips, sigma, thresh)
+    launches = ct.crop_tails.launches - before
+    plain = ct.crop_tails_plain(maps, targets, flips, sigma, thresh)
+    torch.cuda.synchronize()
+    assert got.device == maps.device and got.shape == plain.shape
+    assert torch.equal(got, plain)
+    return launches
+
+
+def _crop_tail_case(case):
+    rng = np.random.RandomState(len(case))
+    if case == "hand":      # the hand cell's: 8 crops of 64-192 px
+        sides = rng.randint(64, 193, 8)
+        return [(int(s), int(s)) for s in sides], [i % 2 == 0
+                                                   for i in range(8)], 22
+    if case == "face":
+        return ([tuple(int(v) for v in hw)
+                 for hw in rng.randint(40, 300, (8, 2))],
+                [False, True] * 4, 71)
+    if case == "below_radius":
+        return [(3, 5), (1, 1), (7, 2), (1, 20)], [True, False, True,
+                                                   True], 22
+    return [(2048, 48), (31, 2048)], [False, True], 22    # the longest side
+
+
+@pytest.mark.parametrize("plateau", [False, True])
+@pytest.mark.parametrize("case", ["hand", "face", "below_radius",
+                                  "side_2048"])
+def test_crop_tail_kernel_equals_plain(cuda_device, case, plateau):
+    targets, flips, c = _crop_tail_case(case)
+    maps = _crop_tail_maps(len(targets), 46, 46, c, len(case), cuda_device,
+                           plateau)
+    assert _tails_on_card(maps, targets, flips) == 1
+
+
+@pytest.mark.parametrize("n", [64, 65])
+def test_crop_tail_kernel_takes_more_crops_than_a_launch_holds(cuda_device,
+                                                               n):
+    rng = np.random.RandomState(n)
+    targets = [tuple(int(v) for v in hw) for hw in rng.randint(1, 60, (n, 2))]
+    flips = [bool(f) for f in rng.randint(0, 2, n)]
+    maps = _crop_tail_maps(n, 46, 46, 22, n, cuda_device)
+    assert _tails_on_card(maps, targets, flips) == -(-n // 64)
+
+
+@pytest.mark.parametrize("sigma", [8.0, 11.9])
+def test_crop_tail_kernel_at_wide_radii(cuda_device, sigma):
+    """Radii 32 and 48, the largest: the block's shared memory grows with
+    the tile's halo (218,500 bytes at radius 48 and the largest plane)."""
+    maps = _crop_tail_maps(2, 46, 46, 22, 3, cuda_device)
+    assert _tails_on_card(maps, [(64, 97), (5, 150)], [True, False],
+                          sigma=sigma) == 1
+
+
+def test_crop_tail_on_a_cuda_tensor_never_falls_back(cuda_device,
+                                                     monkeypatch):
+    from tpupose_torch.ops import crop_tail as ct
+
+    def no_plain(*args):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    maps = _crop_tail_maps(2, 46, 46, 22, 4, cuda_device)
+    want = ct.crop_tails_plain(maps, [(64, 64), (9, 9)], [True, False],
+                               2.5, 0.1)
+    monkeypatch.setattr(ct, "crop_tails_plain", no_plain)
+    got = ct.crop_tails(maps, [(64, 64), (9, 9)], [True, False], 2.5, 0.1)
+    assert torch.equal(got, want)
+
+    def broken():
+        raise RuntimeError("no kernel")
+
+    monkeypatch.setattr(ct, "_library", broken)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ct.crop_tails(maps, [(64, 64), (9, 9)], [True, False], 2.5, 0.1)
+    with pytest.raises(ValueError, match="target size"):
+        ct.crop_tails(maps, [(64, 64), (9, ct.MAX_SIDE + 1)],
+                      [True, False], 2.5, 0.1)
+
+
+def test_crop_tails_op_launches_the_kernel_on_the_card(cuda_device):
+    from tpupose_torch.ops import crop_tail as ct
+    from tpupose_torch.ops import library  # noqa: F401  registers the ops
+
+    maps = _crop_tail_maps(3, 46, 46, 22, 6, cuda_device)
+    targets, flips = [(64, 64), (9, 150), (192, 100)], [True, False, True]
+    before = ct.crop_tails.launches
+    got = torch.ops.tpupose.crop_tails(
+        maps, [v for hw in targets for v in hw], flips, 2.5, 0.1)
+    assert ct.crop_tails.launches == before + 1
+    assert torch.equal(got, ct.crop_tails(maps, targets, flips, 2.5, 0.1))
+
+
+@pytest.mark.parametrize("arch", ["facenet", "handnet"])
+def test_crop_detector_runs_its_tails_in_one_launch_a_request(cuda_device,
+                                                              arch):
+    """``submit_crops`` runs every crop's tail in one ``crop_tails``
+    launch, and its rows equal a CPU twin's tails on the same maps bit for
+    bit; a crop bundle's per-crop tail program equals them too."""
+    import copy
+
+    from tpupose_torch.ops import crop_tail as ct
+
+    _, card, crops = _crop_detector_pair(arch, cuda_device)
+    crops = (crops * 3)[:8]
+    flips = [i % 2 == 1 for i in range(8)]
+    maps = card.forward_maps(card.prepare_crops(crops, flips))[-1]
+    hws = [c.shape[:2] for c in crops]
+    before = ct.crop_tails.launches
+    rows, _ = card.submit_tails(maps, hws, flips)
+    assert ct.crop_tails.launches - before == 1
+    twin = copy.copy(card)
+    twin.device = torch.device("cpu")
+    ref, _ = twin.submit_tails(maps.cpu(), hws, flips)
+    assert torch.equal(rows.cpu(), ref)
+    for i in (0, 5):
+        target, _ = card._tail_target(hws[i])
+        assert torch.equal(card._tail_fn(target, flips[i])(maps[i]),
+                           rows[i])
+    before = ct.crop_tails.launches
+    card.detect_crops(crops, flips)
+    assert ct.crop_tails.launches - before == 1
+
+
 def _tiny_frames():
     return [np.zeros(s, np.uint8) for s in ((1, 1, 3), (16, 9, 3),
                                             (9, 16, 3))]

@@ -6,12 +6,13 @@ uploaded, then all of them are resized to ``cfg.img_size`` square on the
 detector's device in one ``resize_u8_linear_batch`` (cv2's uint8
 INTER_LINEAR, emulated exactly; a crop is mirrored first where asked: the
 left-hand path), normalized by **/256 - 0.5** (the crop nets' convention,
-not the pose net's /255), and go through ONE batched forward.  Per crop,
-the last stage's heatmaps are resized (align corners) to the crop's size,
-un-mirrored with ``torch.flip`` where the input was, blurred and reduced
-to one keypoint per channel (``global_argmax_keypoints``); every crop's
-``(x, y, score, valid)`` comes back to the host in one device-to-host
-copy.
+not the pose net's /255), and go through ONE batched forward.  Every
+crop's tail runs in one ``crop_tails`` call (``ops/crop_tail.py``: on the
+card one ``csrc/crop_tail.cu`` launch per request of up to 64 crops): the
+last stage's heatmaps resized (align corners) to the crop's size,
+un-mirrored where the input was, blurred and reduced to one keypoint per
+channel, the first maximum; every crop's ``(x, y, score, valid)`` comes
+back to the host in one device-to-host copy.
 
 ``compute_dtype=torch.bfloat16`` runs the net in bfloat16 with its
 parameters stored in it (the JAX package's ``commit_variables(dtype=...)``);
@@ -26,7 +27,7 @@ exports (``tpupose_torch/serving.py::save_crop_bundle``); the live
 A request's stages run in ``utils.profiling.annotate`` spans:
 ``crop.upload`` (packing the raw crops and their copy), ``crop.resize``
 (``resize_u8_linear_batch``), ``crop.forward`` (``forward_maps``),
-``crop.postprocess`` (every crop's tail and their stack, one span) and
+``crop.postprocess`` (``crop_tails`` over every crop, one span) and
 ``crop.fetch`` (``collect_crops``'s copy, its wait and the keypoint
 lists).
 """
@@ -41,7 +42,7 @@ from torch.func import functional_call
 
 from tpupose_torch.detectors.pose import float32_numerics
 from tpupose_torch.models import ARCHS
-from tpupose_torch.ops.peaks import global_argmax_keypoints
+from tpupose_torch.ops.library import crop_tails
 from tpupose_torch.ops.resize import (pack_u8_images, resize_chainer,
                                       resize_u8_linear,
                                       resize_u8_linear_batch)
@@ -209,7 +210,10 @@ class CropKeypointDetector:
         """One crop's last-stage heatmaps (h, w, C) -> the (C - 1, th, tw)
         maps its keypoints are taken from: resized to ``target_hw``,
         un-mirrored if the input was, background dropped.  The resize is a
-        matmul: run it inside ``float32_numerics()``."""
+        matmul: run it inside ``float32_numerics()``.  The tails themselves
+        run ``crop_tails``, whose resize equals this one on the CPU bit for
+        bit; this is its per-crop statement, which the tests and
+        ``chip_smoke.py`` read."""
         hm = resize_chainer(hm, target_hw)
         if flip:
             hm = torch.flip(hm, dims=(1,))
@@ -218,13 +222,13 @@ class CropKeypointDetector:
     def _tail_fn(self, target_hw: Tuple[int, int], flip: bool):
         """A crop tail's program: one crop's last-stage heatmaps (h, w, C)
         -> its (4, C - 1) rows of x, y, score and valid, as float32
-        (coordinates are exact in float32 below 2^24)."""
+        (coordinates are exact in float32 below 2^24): ``crop_tails`` on a
+        batch of one, so a bundle's tail equals the live detector's."""
 
         def fn(hm):
-            x, y, score, valid = global_argmax_keypoints(
-                self.tail_maps(hm, target_hw, flip),
-                self.cfg.gaussian_sigma, self.cfg.heatmap_peak_thresh)
-            return torch.stack([x.float(), y.float(), score, valid.float()])
+            return crop_tails(hm[None].contiguous(), [target_hw], [flip],
+                              self.cfg.gaussian_sigma,
+                              self.cfg.heatmap_peak_thresh)[0]
 
         return fn
 
@@ -250,15 +254,16 @@ class CropKeypointDetector:
     def submit_tails(self, heatmaps: torch.Tensor,
                      crop_hws: Sequence[Tuple[int, int]],
                      flips: Sequence[bool]):
-        """The per-crop tails of ``submit_crops`` on last-stage heatmaps
-        (B, h, w, C) already computed for crops of sizes ``crop_hws``."""
-        rows, scales = [], []
-        with float32_numerics(), torch.no_grad():
-            for hm, crop_hw, flip in zip(heatmaps, crop_hws, flips):
-                target_hw, scale = self._tail_target(crop_hw)
-                rows.append(self._tail_fn(target_hw, flip)(hm))
-                scales.append(scale)
-        return torch.stack(rows), scales
+        """The tails of ``submit_crops`` on last-stage heatmaps (B, h, w, C)
+        already computed for crops of sizes ``crop_hws``: one
+        ``crop_tails`` call for all of them."""
+        targets, scales = zip(*(self._tail_target(tuple(hw))
+                                for hw in crop_hws))
+        with torch.no_grad():
+            rows = crop_tails(heatmaps.contiguous(), targets, flips,
+                              self.cfg.gaussian_sigma,
+                              self.cfg.heatmap_peak_thresh)
+        return rows, list(scales)
 
     def collect_crops(self, pending) -> List[list]:
         """Copy a ``submit_crops`` handle's results to the host (one copy);

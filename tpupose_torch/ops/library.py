@@ -19,7 +19,10 @@ plain version:
   (~1,450 nodes) stay out of a traced CPU program, and export, save and
   load times grow with the node count;
 - ``tpupose::group_keypoints``: ``ops/group_fold.py`` (plain version
-  ``ops/grouping.py::fold_connections``), on (..., L, K) connections.
+  ``ops/grouping.py::fold_connections``), on (..., L, K) connections;
+- ``tpupose::crop_tails``: ``ops/crop_tail.py``, every crop's keypoint
+  tail of a face or hand request, the targets as a flat ``[th, tw, ...]``
+  list.
 
 Each op's fake implementation gives its output shapes and dtypes, so a
 program is traced without running it.  The ops are registered with
@@ -48,6 +51,7 @@ from torch import Tensor
 from tpupose_torch.ops import blur_nms as _bn
 from tpupose_torch.ops import conv7 as _c7
 from tpupose_torch.ops import conv_s8 as _cs
+from tpupose_torch.ops import crop_tail as _ct
 from tpupose_torch.ops import greedy_match as _gm
 from tpupose_torch.ops import group_fold as _gf
 from tpupose_torch.ops import requant as _rq
@@ -306,3 +310,34 @@ def group_keypoints(connections, peaks, cfg, topology: Topology = COCO18):
             *args, [int(j) for j in topology.limbs_from],
             [int(j) for j in topology.limbs_to], list(topology.spawns)))
     return Subsets(*_gf.group_fold(*args, topology))
+
+
+# ---------------------------------------------------------------------------
+# tpupose::crop_tails
+# ---------------------------------------------------------------------------
+
+
+def _crop_tails_impl(maps, targets, flips, sigma, thresh):
+    # a traced program drops a .contiguous() of its contiguous example
+    # input, and is then fed rows of another program's strided output
+    return _ct.crop_tails(maps.contiguous(),
+                          list(zip(targets[::2], targets[1::2])), flips,
+                          sigma, thresh)
+
+
+_define("crop_tails(Tensor maps, int[] targets, bool[] flips, float sigma, "
+        "float thresh) -> Tensor",
+        {"CUDA": _crop_tails_impl, "CPU": _crop_tails_impl},
+        lambda maps, targets, flips, sigma, thresh: maps.new_empty(
+            (maps.shape[0], 4, maps.shape[-1] - 1)))
+
+
+def crop_tails(maps: Tensor, targets: Sequence[Tuple[int, int]],
+               flips: Sequence[bool], sigma: float, thresh: float) -> Tensor:
+    """``ops/crop_tail.py::crop_tails``, through ``tpupose::crop_tails``
+    when traced."""
+    if tracing():
+        return _OPS.crop_tails.default(
+            maps, [int(v) for hw in targets for v in hw],
+            [bool(f) for f in flips], float(sigma), float(thresh))
+    return _ct.crop_tails(maps, targets, flips, sigma, thresh)
