@@ -441,8 +441,8 @@ def run_slice(cfg, frames):
     import numpy as np
     import torch
 
-    from tpupose_torch.detectors.pose import (PoseDetector,
-                                              float32_numerics,
+    from tpupose_torch.detectors.net import float32_numerics
+    from tpupose_torch.detectors.pose import (PoseDetector, fast_geometry,
                                               results_to_host)
     from tpupose_torch.ops.grouping import group_keypoints as plain_fold
     from tpupose_torch.ops.library import group_keypoints
@@ -530,7 +530,7 @@ def run_slice(cfg, frames):
             raise AssertionError(f"{name} maps: card and CPU disagree")
 
     # --- where the time goes, per frame ---
-    (in_h, in_w), _ = det._geometry(*frames.shape[1:3])
+    (in_h, in_w), _ = fast_geometry(det.cfg, *frames.shape[1:3])
     resized = resize_u8_linear(frames[0], (in_w, in_h))
     map_hw = tuple(paf.shape[-2:])
     with float32_numerics(), torch.no_grad():
@@ -1465,7 +1465,8 @@ def run_body25(cfg, frames):
     import torch
 
     from tpupose_torch import quant as tq
-    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
+    from tpupose_torch.detectors.pose import PoseDetector, fast_geometry
     from tpupose_torch.ops import conv_s8 as cs
     from tpupose_torch.ops.resize import resize_u8_linear
 
@@ -1505,14 +1506,14 @@ def run_body25(cfg, frames):
         raise AssertionError("body25 int8: no pose found in any frame")
     check_path_shapes("body25 int8 path", cfg, shapes)
 
-    (in_h, in_w), _ = qdet._geometry(*frames.shape[1:3])
+    (in_h, in_w), _ = fast_geometry(qdet.cfg, *frames.shape[1:3])
     x = torch.from_numpy(resize_u8_linear(frames[0], (in_w, in_h))[None]
                          ).cuda().float() / 255.0 - 0.5
     cpu_apply = tq.make_quant_apply(
         qdet.quant_static, tq.qtree_to_device(qdet.qtree, qdet.quant_static,
                                               "cpu"))
     with torch.no_grad(), float32_numerics():
-        got = qdet._quant_forward(x)
+        got = qdet.net.quant_forward(x)
         t1 = time.perf_counter()
         ref = cpu_apply(x.cpu())
         cpu_s = time.perf_counter() - t1
@@ -1536,7 +1537,7 @@ def run_body25(cfg, frames):
         torch.cuda.synchronize()
         im2col_counts, im2col_shapes = _read_counts(), _read_shapes()
         route_ms = {
-            "kernel": _cuda_ms(lambda: qdet._quant_forward(x), 10),
+            "kernel": _cuda_ms(lambda: qdet.net.quant_forward(x), 10),
             "im2col": _cuda_ms(lambda: tq.quant_apply(
                 static, im2col_tree, x, "im2col"), 10)}
     acts = collections.Counter()
@@ -1664,7 +1665,8 @@ def run_quantized(f32_det, cfg, frames):
     import torch
 
     from tpupose_torch import quant as tq
-    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
+    from tpupose_torch.detectors.pose import PoseDetector, fast_geometry
     from tpupose_torch.ops.resize import resize_u8_linear
 
     t0 = time.perf_counter()
@@ -1708,14 +1710,14 @@ def run_quantized(f32_det, cfg, frames):
     check_path_shapes("quantized fast path", cfg, shapes)
 
     # --- the card's int8 forward vs the CPU's on the same tree ---
-    (in_h, in_w), _ = det._geometry(*frames.shape[1:3])
+    (in_h, in_w), _ = fast_geometry(det.cfg, *frames.shape[1:3])
     resized = resize_u8_linear(frames[0], (in_w, in_h))
     x = torch.from_numpy(resized[None]).cuda().float() / 255.0 - 0.5
     cpu_apply = tq.make_quant_apply(
         det.quant_static, tq.qtree_to_device(det.qtree, det.quant_static,
                                              "cpu"))
     with torch.no_grad(), float32_numerics():
-        pafs, hms = det._quant_forward(x)
+        pafs, hms = det.net.quant_forward(x)
         t0 = time.perf_counter()
         cpafs, chms = cpu_apply(x.cpu())
         cpu_s = time.perf_counter() - t0
@@ -1840,7 +1842,7 @@ def _precise_int8_vs_cpu(det, frame):
     import torch
 
     from tpupose_torch import quant as tq
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
 
     cpu_apply = tq.make_quant_apply(
         det.quant_static, tq.qtree_to_device(det.qtree, det.quant_static,
@@ -1851,7 +1853,7 @@ def _precise_int8_vs_cpu(det, frame):
                 *frame.shape[:2]):
             x = det._scaled_on_canvas(img, scaled_hw, padded_hw) / 255.0 \
                 - 0.5
-            pafs, hms = det._quant_forward(x)
+            pafs, hms = det.net.quant_forward(x)
             t0 = time.perf_counter()
             cpafs, chms = cpu_apply(x.cpu())
             cpu_s = time.perf_counter() - t0
@@ -1924,14 +1926,14 @@ def split_int8(qdet, x, frame, precise_ms, conv7_grids, conv_s8_layers):
     import torch
 
     from tpupose_torch import quant as tq
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
 
     im2col = tq.make_quant_apply(
         qdet.quant_static, tq.qtree_to_device(qdet.qtree, qdet.quant_static,
                                               "cuda"), "im2col")
     with torch.no_grad(), float32_numerics():
         routes, im2col_shapes = {}, None
-        for route, fn in (("kernel", qdet._quant_forward),
+        for route, fn in (("kernel", qdet.net.quant_forward),
                           ("im2col", im2col)):
             _reset_counts()
             fn(x)
@@ -1952,11 +1954,11 @@ def split_int8(qdet, x, frame, precise_ms, conv7_grids, conv_s8_layers):
     # may leave per-launch cost behind.
     call_ms = _host_ms(lambda: qdet(frame), 5)
     with torch.no_grad(), float32_numerics():
-        forward_ms = _round_robin_ms({"im2col": lambda: im2col(x),
-                                      "kernel": lambda: qdet._quant_forward(
-                                          x)}, iters=5)
+        forward_ms = _round_robin_ms(
+            {"im2col": lambda: im2col(x),
+             "kernel": lambda: qdet.net.quant_forward(x)}, iters=5)
         f32_ms = _cuda_ms(lambda: qdet.model(x), 5)
-        kernel_ops = _profile_forward(qdet._quant_forward, x)
+        kernel_ops = _profile_forward(qdet.net.quant_forward, x)
         im2col_ops = _profile_forward(im2col, x)
     device_ms, device_n = _route_split("kernel", kernel_ops)
     im2col_device_ms, im2col_n = _route_split("im2col", im2col_ops)
@@ -2020,9 +2022,10 @@ def _cpu_twin(det):
 
     twin = copy.copy(det)
     twin.device = torch.device("cpu")
+    twin.net = copy.copy(det.net)
     twin.model = copy.deepcopy(det.model).cpu()
     if det.quantized:
-        twin._quant_forward = tq.make_quant_apply(
+        twin.net.quant_forward = tq.make_quant_apply(
             det.quant_static, tq.qtree_to_device(det.qtree, det.quant_static,
                                                  "cpu"))
     return twin
@@ -2123,7 +2126,7 @@ def run_crop_nets(f32_det, cfg, frames):
     from tpupose_torch.apps.demo import cascade_results
     from tpupose_torch.detectors import FaceDetector, HandDetector
     from tpupose_torch.detectors.crop_keypoints import preprocess_crops_u8
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.ops import crop_tail as ct
     from tpupose_torch.ops import resize as rs
     from tpupose_torch.utils.calibrate import calibrate_crop_output_conv
@@ -2247,7 +2250,7 @@ def run_crop_nets(f32_det, cfg, frames):
                 split[f"{name}_f32_forward_B{b}_ms"] = _cuda_ms(
                     lambda: det.model(x), 5)
                 split[f"{name}_int8_forward_B{b}_ms"] = _cuda_ms(
-                    lambda: det._quant_forward(x), 5)
+                    lambda: det.net.quant_forward(x), 5)
     split["face_host_resize_ms_per_crop"] = _host_ms(
         lambda: face.prepare_crops(faces, [False] * len(faces)), 2) / len(
             faces)
@@ -2279,8 +2282,9 @@ def _f32_view(det):
     import copy
 
     view = copy.copy(det)
-    view._quant_forward = None
-    view.quantized = False
+    view.net = copy.copy(det.net)
+    view.net.quant_forward = None
+    view.net.quantized = False
     return view
 
 
@@ -2400,7 +2404,7 @@ def _per_crop_tails(maps, targets, flips, sigma, thresh):
     import torch
 
     from tpupose_torch.detectors.crop_keypoints import CropKeypointDetector
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.ops.peaks import global_argmax_keypoints
 
     rows = []
@@ -3012,7 +3016,8 @@ def _bf16_modes(f32_det, p32, cfg, frames, root, add):
     import torch
 
     from tpupose_torch.detectors import FaceDetector
-    from tpupose_torch.detectors.pose import (PoseDetector, float32_numerics,
+    from tpupose_torch.detectors.net import float32_numerics
+    from tpupose_torch.detectors.pose import (PoseDetector, fast_geometry,
                                               preprocess_u8)
     from tpupose_torch.ops.resize import resize_u8_linear
     from tpupose_torch.serving import ServingPoseDetector, save_bundle
@@ -3043,7 +3048,7 @@ def _bf16_modes(f32_det, p32, cfg, frames, root, add):
                 raise AssertionError(f"bf16 {label} {name} maps do not "
                                      f"track f32")
 
-    (in_h, in_w), _ = det._geometry(*frames.shape[1:3])
+    (in_h, in_w), _ = fast_geometry(det.cfg, *frames.shape[1:3])
     x = preprocess_u8(torch.from_numpy(
         resize_u8_linear(frames[0], (in_w, in_h))[None]).cuda())
     with float32_numerics(), torch.no_grad():
@@ -3219,7 +3224,8 @@ def _host_pyramid(p32, cfg, frames, add):
 
     import torch
 
-    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
+    from tpupose_torch.detectors.pose import PoseDetector
 
     hcfg = dataclasses.replace(cfg, device_pyramid=False)
     det = PoseDetector(cfg=hcfg, device="cuda", precise=True)
@@ -3395,6 +3401,7 @@ def _profiling(f32_det, frames, root):
     ``StageTimer`` over three frames."""
     import torch
 
+    from tpupose_torch.detectors.pose import fast_geometry
     from tpupose_torch.utils.profiling import TRACE_FILE, StageTimer, trace
 
     logdir = os.path.join(root, "trace")
@@ -3405,7 +3412,7 @@ def _profiling(f32_det, frames, root):
         torch.cuda.synchronize()
     with open(os.path.join(logdir, TRACE_FILE)) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
-    (in_h, in_w), _ = f32_det._geometry(*frames.shape[1:3])
+    (in_h, in_w), _ = fast_geometry(f32_det.cfg, *frames.shape[1:3])
     span = f"pose_fast_{in_h}x{in_w}"
     kernels = sorted(n for n in names if "blur_nms_kernel" in n)
     size = os.path.getsize(os.path.join(logdir, TRACE_FILE))
@@ -3849,7 +3856,7 @@ def run_training(smi):
     import torch
 
     from tpupose_torch.config import TRAIN
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.ops import _cuda_build
 
     t_phase = time.perf_counter()
@@ -4018,7 +4025,7 @@ def _p12_detect(mesh, cfg, frames, numbers, label, int8):
     import numpy as np
     import torch
 
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
 
     det, ref = _p12_detectors(cfg, mesh)
     counts = {}
@@ -4091,7 +4098,7 @@ def _p12_rank(rank, world, port, backend, outdir, cfg):
     import torch
     import torch.distributed as dist
 
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.parallel import initialize_distributed, make_mesh
 
     device = (torch.device("cuda", rank) if backend == "nccl"
@@ -4159,7 +4166,7 @@ def _p12_single_nccl(numbers):
     meshed train step bit-equal to the mesh-less one."""
     import torch.distributed as dist
 
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.parallel import initialize_distributed, make_mesh
 
     initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
@@ -4184,7 +4191,8 @@ def _p12_camera(cfg, numbers):
     from tpupose_torch.apps.camera import (pose_face_crops, stream_face,
                                            stream_pose, stream_pose_batched)
     from tpupose_torch.detectors import FaceDetector
-    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
+    from tpupose_torch.detectors.pose import PoseDetector
     from tpupose_torch.utils.calibrate import (calibrate_crop_output_conv,
                                                calibrate_output_convs)
 

@@ -55,7 +55,8 @@ def main() -> int:
     import dataclasses
 
     from tpupose_torch.config import INFERENCE
-    from tpupose_torch.detectors.pose import PoseDetector, float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
+    from tpupose_torch.detectors.pose import PoseDetector, fast_geometry
     from tpupose_torch.ops.resize import resize_u8_linear
     from tpupose_torch.utils.calibrate import calibrate_output_convs
 
@@ -79,12 +80,12 @@ def main() -> int:
     det = PoseDetector(cfg=cfg, device="cuda", seed=0)
     det.model.load_state_dict(f32.model.state_dict())
     det.quantize([frames[0], frames[0][:, ::-1]])
-    (in_h, in_w), _ = det._geometry(*frames.shape[1:3])
+    (in_h, in_w), _ = fast_geometry(det.cfg, *frames.shape[1:3])
     x = torch.from_numpy(resize_u8_linear(frames[0], (in_w, in_h))[
         None]).cuda().float() / 255.0 - 0.5
     with torch.no_grad(), float32_numerics():
         out["int8_forward_ms"] = smoke._cuda_ms(
-            lambda: det._quant_forward(x), 10)
+            lambda: det.net.quant_forward(x), 10)
     torch.cuda.reset_peak_memory_stats()
     out["fast_int8_call_ms"] = smoke._host_ms(lambda: det(frames[0]), 7)
     out["fast_int8_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
@@ -102,7 +103,7 @@ def main() -> int:
 
     # The profiler last: it may leave per-launch cost behind.
     with torch.no_grad(), float32_numerics():
-        ops = smoke._profile_forward(det._quant_forward, x)
+        ops = smoke._profile_forward(det.net.quant_forward, x)
     out.update(
         int8_forward_device_ms=sum(ms for ms, _ in ops.values()),
         int8_forward_kernel_launches=sum(n for _, n in ops.values()),

@@ -33,8 +33,8 @@ from tpupose.config import InferenceConfig as JaxInferenceConfig
 from tpupose_torch import quant as tq
 from tpupose_torch.config import FaceConfig, InferenceConfig
 from tpupose_torch.detectors import FaceDetector
-from tpupose_torch.detectors.pose import (PoseDetector, float32_numerics,
-                                          preprocess_u8)
+from tpupose_torch.detectors.net import float32_numerics
+from tpupose_torch.detectors.pose import PoseDetector, preprocess_u8
 from tpupose_torch.models import CocoPoseNet
 from tpupose_torch.ops.resize import resize_u8_linear
 from tpupose_torch.serving import ServingPoseDetector, save_bundle
@@ -177,7 +177,7 @@ def test_bf16_quantize_calibrates_on_the_bf16_forward(bf16_pair):
                             jnp.asarray(x.numpy()))
     for path in ("stem/conv1_1", "stem/conv4_4_CPM", "stage6_L2"):
         assert ranges[path] == pytest.approx(jranges[path], rel=BF16_TOL)
-    pafs, hms = det._quant_forward(
+    pafs, hms = det.net.quant_forward(
         preprocess_u8(torch.from_numpy(_frame(0))[None]))
     assert pafs.dtype == hms.dtype == torch.float32
     assert torch.isfinite(hms).all() and hms.abs().max() > 0

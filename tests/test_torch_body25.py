@@ -63,13 +63,10 @@ def model():
     return Body25Net(seed=7).eval()
 
 
-@pytest.fixture(scope="module")
-def detector():
-    """A calibrated f32 detector: the last PAF head scaled to unit
-    amplitude, then (the heatmap stages read that PAF) the last heatmap
-    head so each part has a few peaks above the threshold."""
-    det = PoseDetector("body25", device="cpu", cfg=CFG, seed=11)
-    frame = _frames(1, seed=3)[0]
+def calibrate_heads(det, frame):
+    """Calibrate a fast f32 BODY_25 detector in place: the last PAF head
+    scaled to unit amplitude, then (the heatmap stages read that PAF) the
+    last heatmap head so each part has a few peaks above the threshold."""
     head = {m: list(getattr(det.model, m).children())[-1].conv
             for m in ("stage3_L2", "stage1_L1")}
     with torch.no_grad():
@@ -78,14 +75,21 @@ def detector():
         head["stage3_L2"].weight.mul_(gain[:, None, None, None])
         head["stage3_L2"].bias.mul_(gain)
         (_, hm), _ = det.compute_maps(frame)
-        blur = ref.smooth(hm[:-1].numpy(), CFG.gaussian_sigma)
+        blur = ref.smooth(hm[:-1].numpy(), det.cfg.gaussian_sigma)
         gain = torch.ones(hm.shape[0])
         for j, m in enumerate(blur):
             top = np.sort(m.ravel())[::-1]
-            gain[j] = CFG.heatmap_peak_thresh * 3.0 / max(float(top[0]),
-                                                          1e-12)
+            gain[j] = det.cfg.heatmap_peak_thresh * 3.0 / max(float(top[0]),
+                                                              1e-12)
         head["stage1_L1"].weight.mul_(gain[:, None, None, None])
         head["stage1_L1"].bias.mul_(gain)
+
+
+@pytest.fixture(scope="module")
+def detector():
+    """A calibrated f32 detector (``calibrate_heads``)."""
+    det = PoseDetector("body25", device="cpu", cfg=CFG, seed=11)
+    calibrate_heads(det, _frames(1, seed=3)[0])
     return det
 
 
@@ -179,7 +183,7 @@ def test_body25_int8_forward_equals_emulation_bit_for_bit(model,
     # stage inputs after the first read [feature, PAF(, heatmap)]
     assert sum(len(m["splits"]) > 1
                for m in static.layer_meta.values()) == 6 * 5 + 5
-    tree = tq.qtree_to_device(qtree, static, "cpu", pack_kernels=True)
+    tree = tq.qtree_to_device(qtree, static, "cpu", "kernel")
     calls = []
     plain = cs.conv_s8_reference
 

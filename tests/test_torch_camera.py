@@ -62,7 +62,7 @@ def _frames(n, seed=0):
 
 def _pose_detector(precise=False):
     from tpupose_torch.config import InferenceConfig
-    from tpupose_torch.detectors import pose
+    from tpupose_torch.detectors import net, pose
     from tpupose_torch.models import CocoPoseNet
     from tpupose_torch.utils.calibrate import calibrate_output_convs
 
@@ -70,13 +70,13 @@ def _pose_detector(precise=False):
                           n_subset_limbs_thresh=2, subset_score_thresh=0.05)
     if precise:
         cfg = dataclasses.replace(cfg, scales=(0.5, 1.0))
-    archs = pose.ARCHS
-    pose.ARCHS = dict(archs, posenet=lambda seed=0, dtype=torch.float32:
-                      CocoPoseNet(num_stages=2, seed=seed, dtype=dtype))
+    archs = net.ARCHS
+    net.ARCHS = dict(archs, posenet=lambda seed=0, dtype=torch.float32:
+                     CocoPoseNet(num_stages=2, seed=seed, dtype=dtype))
     try:
         det = pose.PoseDetector(cfg=cfg, device="cpu", precise=precise)
     finally:
-        pose.ARCHS = archs
+        net.ARCHS = archs
     assert calibrate_output_convs(det, _frames(1)[0])
     return det
 

@@ -279,7 +279,7 @@ def test_quant_apply_kernel_route_equals_im2col_on_cpu(monkeypatch):
         np.float32)) / 255.0 - 0.5
     ranges = tq.calibrate_ranges(model, frames)
     qtree, static = tq.quantize("posenet", model, ranges)
-    tree = tq.qtree_to_device(qtree, static, "cpu", pack_kernels=True)
+    tree = tq.qtree_to_device(qtree, static, "cpu", "kernel")
     assert sum("conv_s8_packed" in s for s in tree["qlayers"].values()) == 30
     assert sum("conv7_packed" in s for s in tree["qlayers"].values()) == 50
     calls = {name: _counting(monkeypatch, name)

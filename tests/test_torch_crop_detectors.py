@@ -174,7 +174,7 @@ def test_quantized_detector_matches_jax(pairs, arch, monkeypatch):
     from tpupose.detectors import FaceDetector as JaxFaceDetector
     from tpupose.detectors import HandDetector as JaxHandDetector
     import tpupose.quant as jq
-    from tpupose_torch.detectors import crop_keypoints
+    from tpupose_torch.detectors import net
 
     jdet0, tdet0 = pairs[arch]
     params = jax.tree_util.tree_map(np.asarray,
@@ -207,7 +207,7 @@ def test_quantized_detector_matches_jax(pairs, arch, monkeypatch):
         for a, b in zip(got["mult"], ref["mult"]):
             np.testing.assert_allclose(a, b, rtol=1e-5, err_msg=path)
 
-    monkeypatch.setattr(crop_keypoints, "calibrate_ranges",
+    monkeypatch.setattr(net, "calibrate_ranges",
                         lambda model, frames: seen["ranges"])
     det = cls(cfg=cfg, params=params, device="cpu")
     det.quantize(calib)

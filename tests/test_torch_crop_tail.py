@@ -30,7 +30,7 @@ import torch
 from tpupose_torch.config import FaceConfig, HandConfig
 from tpupose_torch.detectors import FaceDetector, HandDetector
 from tpupose_torch.detectors.crop_keypoints import CropKeypointDetector
-from tpupose_torch.detectors.pose import float32_numerics
+from tpupose_torch.detectors.net import float32_numerics
 from tpupose_torch.ops import _cuda_build
 from tpupose_torch.ops import crop_tail as ct
 from tpupose_torch.ops import library

@@ -368,7 +368,7 @@ def test_int8_forward_on_the_card_equals_the_cpu(cuda_device):
     ranges = tq.calibrate_ranges(model, frames)
     qtree, static = tq.quantize("posenet", model, ranges)
     card = tq.make_quant_apply(static, tq.qtree_to_device(
-        qtree, static, cuda_device, pack_kernels=True), "kernel")
+        qtree, static, cuda_device, "kernel"), "kernel")
     host = tq.make_quant_apply(static, tq.qtree_to_device(qtree, static,
                                                           "cpu"))
     c7.conv7_s8.launches = cs.conv_s8.launches = 0
@@ -397,7 +397,7 @@ def test_body25_int8_im2col_route_on_the_card_equals_the_cpu(cuda_device):
         np.float32)) / 255.0 - 0.5
     ranges = tq.calibrate_ranges(model, frames)
     qtree, static = tq.quantize("body25", model, ranges)
-    tree = tq.qtree_to_device(qtree, static, cuda_device, pack_kernels=True)
+    tree = tq.qtree_to_device(qtree, static, cuda_device, "kernel")
     host = tq.qtree_to_device(qtree, static, "cpu")
     x = frames[:1]
     c7.conv7_s8.launches = cs.conv_s8.launches = 0
@@ -700,7 +700,8 @@ def test_crop_detector_resizes_on_the_card_once_a_request(cuda_device, arch):
     card.quantize(crops[:3])
     twin = copy.copy(card)
     twin.device = torch.device("cpu")
-    twin._quant_forward = tq.make_quant_apply(
+    twin.net = copy.copy(card.net)
+    twin.net.quant_forward = tq.make_quant_apply(
         card.quant_static, tq.qtree_to_device(card.qtree, card.quant_static,
                                               "cpu"))
     before = (rs.resize_u8_linear_batch.launches,
@@ -1054,7 +1055,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     atol 1e-5, the loss within rtol 1e-4 and each gradient leaf within
     1e-3 x max |g| of the CPU's, from one seeded parameter set."""
     from tpupose_torch.config import TrainConfig
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.train import trainer as ttr
 
     cfg = TrainConfig(insize=64, stem_freeze_steps=0)
@@ -1079,7 +1080,7 @@ def test_remat_gradients_on_the_card_equal_plain(cuda_device):
     import dataclasses
 
     from tpupose_torch.config import TrainConfig
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
 
     cfg = TrainConfig(insize=64, stem_freeze_steps=0)
     batch = _synthetic_batch(64, 2, seed=4)
@@ -1100,7 +1101,7 @@ def test_resume_on_the_card_equals_an_uninterrupted_run(cuda_device,
     take step 3 (its first live update): bit-equal, under deterministic
     cuDNN, to three uninterrupted steps."""
     from tpupose_torch.config import TrainConfig
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.train import checkpoint as ckpt
     from tpupose_torch.train import trainer as ttr
 
@@ -1259,7 +1260,7 @@ def _mesh_rank_checks(rank, world):
     import hashlib
 
     from tpupose_torch.config import TrainConfig
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.models import CocoPoseNet
     from tpupose_torch.parallel import make_mesh, replicate
     from tpupose_torch.train import (TrainBatch, init_train_state,

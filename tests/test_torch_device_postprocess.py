@@ -518,9 +518,9 @@ def test_exported_fast_batch_program_equals_live_detect_batch():
     from torch.utils import _pytree as pytree
 
     from tpupose_torch.detectors.pose import (PoseDetector, emit_result,
-                                              results_to_host)
+                                              fast_geometry, results_to_host)
+    from tpupose_torch.ops.library import traced_ops
     from tpupose_torch.ops.postprocess import PoseResult
-    from tpupose_torch.detectors.portable import portable_programs
     from tpupose_torch.serving import _Program
     from tpupose_torch.utils.calibrate import calibrate_output_convs
 
@@ -530,12 +530,12 @@ def test_exported_fast_batch_program_equals_live_detect_batch():
                                               ).astype(np.uint8)
     det = PoseDetector(cfg=cfg, device="cpu", seed=0)
     assert calibrate_output_convs(det, frames[0])
-    (in_h, in_w), map_hw = det._geometry(96, 128)
+    (in_h, in_w), map_hw = fast_geometry(cfg, 96, 128)
     assert (in_h, in_w) == (96, 128)
     leaves, spec = pytree.tree_flatten(det.program_weights())
     imgs = torch.from_numpy(frames)
-    with portable_programs(det), torch.no_grad():
-        ep = torch.export.export(_Program(det._batch_fn(map_hw), spec),
+    with traced_ops(), torch.no_grad():
+        ep = torch.export.export(_Program(det._fast_fn(map_hw), spec),
                                  (leaves, imgs), strict=False)
     targets = {str(n.target) for n in ep.graph.nodes
                if n.op == "call_function"}

@@ -56,11 +56,11 @@ def _two_stage_archs():
     """Every ``PoseDetector`` of this process draws a 2-stage net, and the
     quantizer's graph of it has 2 stages."""
     from tpupose_torch import quant
-    from tpupose_torch.detectors import pose
+    from tpupose_torch.detectors import net
     from tpupose_torch.models import CocoPoseNet
 
-    pose.ARCHS = dict(pose.ARCHS, posenet=lambda seed=0, dtype=torch.float32:
-                      CocoPoseNet(num_stages=STAGES, seed=seed, dtype=dtype))
+    net.ARCHS = dict(net.ARCHS, posenet=lambda seed=0, dtype=torch.float32:
+                     CocoPoseNet(num_stages=STAGES, seed=seed, dtype=dtype))
     quant.ARCH_GRAPHS = dict(quant.ARCH_GRAPHS, posenet=dataclasses.replace(
         quant.ARCH_GRAPHS["posenet"], num_stages=STAGES))
 

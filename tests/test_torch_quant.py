@@ -24,6 +24,7 @@ import torch
 
 from tpupose.config import InferenceConfig
 from tpupose_torch import quant as tq
+from tpupose_torch.detectors import net as tnet
 from tpupose_torch.detectors import pose as tpose
 from tpupose_torch.detectors.pose import PoseDetector
 from tpupose_torch.ops.conv7 import (K_STEP, NUM_SMS, TAPS_PER_STEP,
@@ -432,7 +433,7 @@ def test_quantized_detector_matches_jax(params, quantized_detector,
         for a, b in zip(got["mult"], ref["mult"]):
             np.testing.assert_allclose(a, b, rtol=1e-5, err_msg=path)
 
-    monkeypatch.setattr(tpose, "calibrate_ranges",
+    monkeypatch.setattr(tnet, "calibrate_ranges",
                         lambda model, frames: seen["ranges"])
     det = PoseDetector(params=params, cfg=CFG, device="cpu")
     det.quantize(_calib_frames())

@@ -32,7 +32,7 @@ from tpupose_torch import quant as tq
 from tpupose_torch import serving
 from tpupose_torch.config import FaceConfig, InferenceConfig
 from tpupose_torch.detectors import FaceDetector
-from tpupose_torch.detectors.pose import PoseDetector
+from tpupose_torch.detectors.pose import PoseDetector, fast_geometry
 from tpupose_torch.serving import (ServingCropDetector, ServingPoseDetector,
                                    save_bundle, save_crop_bundle)
 from tpupose_torch.utils.calibrate import (calibrate_crop_output_conv,
@@ -185,7 +185,7 @@ def test_jax_params_npz_loads_into_port_runner(detectors, tmp_path):
                                   "cpu")
     other = PoseDetector(cfg=CFG, device="cpu", seed=7)
     (jpaf, jhm), _ = jdet.compute_maps(_frame(1))
-    (in_h, in_w), map_hw = serving._geometry(CFG, *HW)
+    (in_h, in_w), map_hw = fast_geometry(CFG, *HW)
     assert (in_h, in_w) == HW
     with torch.no_grad():
         paf, hm = other._fast_maps(weights, torch.from_numpy(_frame(1))[None],
@@ -266,6 +266,25 @@ def test_precise_bundle_equals_live_detect_precise(detectors, tmp_path):
     assert _same(srv(_frame(0)), ref) and len(ref[0]) >= 1
     with pytest.raises(ValueError, match="no batched programs"):
         srv.detect_batch(_frame(0)[None])
+
+
+def test_precise_body25_bundle_equals_live_detect_precise(tmp_path):
+    """A precise BODY_25 bundle: its average program takes 52 PAF and 26
+    heatmap channels (the topology's, not posenet's 38 and 19), and it
+    gives the live detector's tables; seeded weights, their heads
+    calibrated so the frame carries people."""
+    from test_torch_body25 import calibrate_heads
+
+    fast = PoseDetector("body25", device="cpu", cfg=CFG, seed=11)
+    calibrate_heads(fast, _frame(0))
+    det = PoseDetector("body25", precise=True, device="cpu", seed=11,
+                       cfg=dataclasses.replace(CFG, scales=(0.5, 1.0)))
+    det.model = fast.model
+    save_bundle(det, str(tmp_path), [HW], platforms=("cpu",))
+    srv = ServingPoseDetector(str(tmp_path), device="cpu")
+    ref = det.detect_precise(_frame(0))
+    assert ref[0].shape[1:] == (25, 3) and len(ref[0]) >= 1
+    assert _same(srv(_frame(0)), ref)
 
 
 def test_crop_bundle_equals_live_crop_detector(tmp_path):
@@ -380,11 +399,10 @@ def test_kernel_ops_run_the_plain_versions_on_cpu(index):
 def test_traced_routing_is_per_thread():
     import threading
 
-    from tpupose_torch.detectors.portable import portable_programs
     from tpupose_torch.ops import library
 
     seen = []
-    with portable_programs(None):
+    with library.traced_ops():
         assert library.tracing()
         t = threading.Thread(target=lambda: seen.append(library.tracing()))
         t.start()

@@ -105,7 +105,7 @@ def main(argv=None):
 
     from tpupose_torch.config import TrainConfig
     from tpupose_torch.data import BatchLoader, CocoPoseDataset
-    from tpupose_torch.detectors.pose import float32_numerics
+    from tpupose_torch.detectors.net import float32_numerics
     from tpupose_torch.models import ARCHS
     from tpupose_torch.train import (init_train_state, make_eval_step,
                                      make_train_step)

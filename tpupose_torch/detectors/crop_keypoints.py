@@ -14,11 +14,12 @@ un-mirrored where the input was, blurred and reduced to one keypoint per
 channel, the first maximum; every crop's ``(x, y, score, valid)`` comes
 back to the host in one device-to-host copy.
 
-``compute_dtype=torch.bfloat16`` runs the net in bfloat16 with its
-parameters stored in it (the JAX package's ``commit_variables(dtype=...)``);
-the net returns float32 maps.  ``quantize()`` swaps the network forward for
-the w8a8 int8 one of ``tpupose_torch/quant.py`` (input quant ``u8 - 128``,
-scale 1/256).
+The network is ``detectors/net.py``'s ``DetectorNet``, held as
+``self.net``.  ``compute_dtype=torch.bfloat16`` runs it in bfloat16 with
+its parameters stored in it (the JAX package's
+``commit_variables(dtype=...)``); it returns float32 maps.  ``quantize()``
+swaps the network forward for the w8a8 int8 one of
+``tpupose_torch/quant.py`` (input quant ``u8 - 128``, scale 1/256).
 
 ``_batch_forward_fn`` and ``_tail_fn`` are the two programs a crop bundle
 exports (``tpupose_torch/serving.py::save_crop_bundle``); the live
@@ -38,20 +39,14 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.func import functional_call
 
-from tpupose_torch.detectors.pose import float32_numerics
-from tpupose_torch.models import ARCHS
+from tpupose_torch.detectors.net import (DetectorNet, NetHolder,
+                                         float32_numerics)
 from tpupose_torch.ops.library import crop_tails
 from tpupose_torch.ops.resize import (pack_u8_images, resize_chainer,
                                       resize_u8_linear,
                                       resize_u8_linear_batch)
-from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
-                                 model_params, qtree_to_device, quant_apply,
-                                 quantize, resolve_conv7_impl)
 from tpupose_torch.utils.profiling import annotate
-from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
-                                   warn_on_load_report)
 
 
 def preprocess_crops_u8(imgs_u8: torch.Tensor) -> torch.Tensor:
@@ -59,7 +54,7 @@ def preprocess_crops_u8(imgs_u8: torch.Tensor) -> torch.Tensor:
     return imgs_u8.float() / 256.0 - 0.5
 
 
-class CropKeypointDetector:
+class CropKeypointDetector(NetHolder):
     """Runs a single-branch CPM net (FaceNet, HandNet) on square-resized
     crops and extracts one keypoint per channel."""
 
@@ -79,27 +74,13 @@ class CropKeypointDetector:
         multiple, so crops of many sizes share few tail shapes; keypoint
         coordinates are rescaled back to the true crop size (<= ~1 px
         shift).  1 = the exact per-crop semantics."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"{type(self).__name__}(device={device!r}): "
-                               "CUDA is not available")
+        self.net = DetectorNet(arch, device, type(self).__name__,
+                               weights_file, params, seed, compute_dtype)
+        self.device = self.net.device
         self.arch = arch
         self.cfg = cfg
         self.tail_stride = tail_stride
         self.compute_dtype = compute_dtype
-        self.model = ARCHS[arch](seed=seed, dtype=compute_dtype)
-        if params is not None:
-            load_flax_params(self.model, params)
-        elif weights_file:
-            report = load_chainer_npz(self.model, weights_file)
-            warn_on_load_report(report, weights_file, arch=arch)
-        self.model = self.model.to(self.device, compute_dtype).eval()
-        # set by quantize()
-        self.quantized = False
-        self.qtree = None
-        self.quant_static = None
-        self.conv7_impl = None
-        self._quant_forward = None
 
     def quantize(self, calib_crops, conv7_impl: Optional[str] = None
                  ) -> None:
@@ -108,24 +89,8 @@ class CropKeypointDetector:
         HWC uint8 crops of any sizes, each resized to ``cfg.img_size``
         square; ``conv7_impl``: ``"kernel"`` (CUDA only, the default there)
         or ``"im2col"`` (the CPU default)."""
-        if self.quantized:
-            raise ValueError("detector is already quantized")
-        conv7_impl = resolve_conv7_impl(conv7_impl, self.device)
-        size = self.cfg.img_size
-        frames = np.stack([resize_u8_linear(np.asarray(c), (size, size))
-                           for c in calib_crops])
-        with float32_numerics():
-            ranges = calibrate_ranges(self.model, preprocess_crops_u8(
-                torch.from_numpy(frames).to(self.device)))
-        self.qtree, self.quant_static = quantize(self.arch, self.model,
-                                                 ranges)
-        self._quant_forward = make_quant_apply(
-            self.quant_static,
-            qtree_to_device(self.qtree, self.quant_static, self.device,
-                            pack_kernels=conv7_impl == "kernel"),
-            conv7_impl)
-        self.quantized = True
-        self.conv7_impl = conv7_impl
+        self.net.quantize(calib_crops, self.cfg.img_size,
+                          preprocess_crops_u8, conv7_impl)
 
     # ------------------------------------------------------------------
 
@@ -140,36 +105,6 @@ class CropKeypointDetector:
             resize_u8_linear(np.asarray(c)[:, ::-1] if f else np.asarray(c),
                              (size, size)) for c, f in zip(crops, flips)])
 
-    def host_weights(self):
-        """The weights as host data: the Flax param tree of a float32
-        detector, the numpy int8 tree of a quantized one."""
-        if self.quantized:
-            return self.qtree
-        return {"params": model_params(self.model)}
-
-    def program_weights(self, device=None):
-        """The weights as a traced program takes them, on ``device``
-        (default: the detector's): ``state_dict``, or the quantized
-        ``qtree_to_device`` tree, packed on the kernel route."""
-        device = torch.device(device or self.device)
-        if self.quantized:
-            return qtree_to_device(self.qtree, self.quant_static, device,
-                                   pack_kernels=self.conv7_impl == "kernel")
-        return {k: v.detach().to(device)
-                for k, v in self.model.state_dict().items()}
-
-    def _net(self, x: torch.Tensor, weights=None) -> torch.Tensor:
-        """Every stage's heatmaps of normalized crops; ``weights`` as in
-        ``program_weights``, or None for the detector's own."""
-        if self._quant_forward is not None:
-            if weights is None:
-                return self._quant_forward(x)
-            return quant_apply(self.quant_static, weights, x,
-                               self.conv7_impl)
-        if weights is None:
-            return self.model(x)
-        return functional_call(self.model, weights, (x,))
-
     def forward_maps(self, imgs_u8) -> torch.Tensor:
         """(B, S, S, 3) uint8 network inputs, a tensor on the detector's
         device or a numpy batch (uploaded first) -> every stage's heatmaps
@@ -180,7 +115,7 @@ class CropKeypointDetector:
                 imgs_u8 = torch.from_numpy(
                     np.ascontiguousarray(imgs_u8)).to(self.device)
         with annotate("crop.forward"), float32_numerics(), torch.no_grad():
-            return self._net(preprocess_crops_u8(imgs_u8))
+            return self.net(preprocess_crops_u8(imgs_u8))
 
     def _batch_forward_fn(self):
         """The crop forward program: ``(weights, imgs_u8)``, (B, S, S, 3)
@@ -188,7 +123,7 @@ class CropKeypointDetector:
         heatmaps."""
 
         def fn(weights, imgs_u8):
-            return self._net(preprocess_crops_u8(imgs_u8), weights)[-1]
+            return self.net(preprocess_crops_u8(imgs_u8), weights)[-1]
 
         return fn
 

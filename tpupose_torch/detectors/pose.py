@@ -56,31 +56,30 @@ whole maps; the results are gathered over ``data``, so every rank returns
 the full list.  A network input with fewer blocks of 8 rows than spatial
 ranks (a small pyramid scale) runs whole on every rank of its group.
 
-The traced programs that ``tpupose_torch/serving.py`` exports are built here
-(``_fast_fn``, ``_batch_fn``, ``_device_scale_fn``, ``_batch_scale_fn``,
-``_avg_postprocess_fn``, ``_batch_avg_postprocess_fn``, the JAX package's
-names): each takes the weights as tensors (``program_weights``) and the
-uint8 frame(s) and runs the same bodies as the live paths, which pass no
-weights and use the detector's own.
+The traced programs that ``tpupose_torch/serving.py`` exports are built here,
+one function each: ``_fast_fn`` and ``_scale_fn`` take the weights as
+tensors (``program_weights``) and a batch of uint8 frames, and
+``_avg_postprocess_fn`` the scales' maps; ``single_frame`` makes a batched
+program one of a single frame.  They run the same bodies as the live
+paths, which pass no weights and use the detector's own.
 
-Numerics: convs run with cuDNN's TF32 off and matmuls at
-``"highest"`` float32 precision; TF32 keeps ~3 decimal digits, enough to
-move peak coordinates.
+The network (model, weights, int8 forward, ``float32_numerics``) is
+``detectors/net.py``'s ``DetectorNet``, held as ``self.net``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import functional_call
+from torch.utils import _pytree as pytree
 
 from tpupose_torch.config import INFERENCE, InferenceConfig
-from tpupose_torch.models import ARCHS
+from tpupose_torch.detectors.net import (DetectorNet, NetHolder,
+                                         float32_numerics)
 from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
                                       resize_cv2_cubic, resize_u8_cubic,
@@ -88,13 +87,8 @@ from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
 from tpupose_torch.ops.upload import to_device
 from tpupose_torch.parallel.mesh import (SLAB_MULTIPLE, Mesh, all_gather_list,
                                          data_part, replicate)
-from tpupose_torch.parallel.spatial import SpatialSlabs, spatial_halos
-from tpupose_torch.quant import (calibrate_ranges, make_quant_apply,
-                                 model_params, qtree_to_device, quant_apply,
-                                 quantize, resolve_conv7_impl)
+from tpupose_torch.parallel.spatial import SpatialSlabs
 from tpupose_torch.utils.profiling import annotate
-from tpupose_torch.weights import (load_chainer_npz, load_flax_params,
-                                   warn_on_load_report)
 
 
 def preprocess_u8(img_u8: torch.Tensor) -> torch.Tensor:
@@ -115,19 +109,23 @@ def pad_image_np(img: np.ndarray, stride: int,
     return out, (pad_b, pad_r)
 
 
-@contextlib.contextmanager
-def float32_numerics():
-    """cuDNN convs without TF32 (deterministic algorithms) and float32
-    matmuls at ``"highest"`` precision, restored on exit."""
-    old = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                        deterministic=True,
-                                        allow_tf32=False):
-            yield
-    finally:
-        torch.set_float32_matmul_precision(old)
+def fast_geometry(cfg: InferenceConfig, orig_h: int, orig_w: int):
+    """The fast path's (input_hw, map_hw) for an original image size."""
+    input_w, input_h = compute_optimal_size(
+        orig_h, orig_w, cfg.img_size, cfg.downscale)
+    map_w, map_h = compute_optimal_size(
+        orig_h, orig_w, cfg.heatmap_size, cfg.downscale)
+    return (input_h, input_w), (map_h, map_w)
+
+
+def single_frame(fn):
+    """A batched program ``fn(weights, imgs)`` as the program of one frame:
+    a leading axis added to the input and dropped from every output."""
+
+    def one(weights, img):
+        return pytree.tree_map(lambda t: t[0], fn(weights, img[None]))
+
+    return one
 
 
 def results_to_host(results: List[PoseResult]) -> List[PoseResult]:
@@ -185,7 +183,7 @@ def emit_result(result: PoseResult, scale_x: float, scale_y: float,
     return poses, scores, warned
 
 
-class PoseDetector:
+class PoseDetector(NetHolder):
     """Multi-person pose detector; the whole per-frame pipeline after the
     host resize (fast path) or the upload (precise path) runs on
     ``device``."""
@@ -207,37 +205,20 @@ class PoseDetector:
         rank builds the detector; the device is the mesh's and the weights
         are broadcast from rank 0).  ``arch="body25"`` has no weight
         file yet: it takes its seeded weights only."""
-        self.device = torch.device(mesh.device if mesh is not None
-                                   else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"PoseDetector(device={device!r}): CUDA is not available")
+        self.net = DetectorNet(arch, mesh.device if mesh is not None
+                               else device, type(self).__name__,
+                               weights_file, params, seed, compute_dtype)
+        self.device = self.net.device
         self.arch = arch
         self.precise = precise
         self.cfg = cfg
         self.compute_dtype = compute_dtype
-        self.model = ARCHS[arch](seed=seed, dtype=compute_dtype)
         self.topology = self.model.topology
-        if arch == "body25" and (params is not None or weights_file):
-            raise ValueError("PoseDetector(arch='body25'): no weight loader "
-                             "for BODY_25 yet; it runs seeded weights")
-        if params is not None:
-            load_flax_params(self.model, params)
-        elif weights_file:
-            report = load_chainer_npz(self.model, weights_file)
-            warn_on_load_report(report, weights_file, arch=arch)
-        self.model = self.model.to(self.device, compute_dtype).eval()
         self.mesh = mesh
         if mesh is not None:
             replicate(self.model, mesh)
         self._slabs_on = False   # inside a meshed detect_batch
-        # set by quantize()
-        self.quantized = False
-        self.qtree = None
-        self.quant_static = None
-        self.conv7_impl = None
-        self._quant_forward = None
-        self._quant_min_side = 0
+        self._quant_min_side = 0   # set by quantize()
         self._warned_saturation = False
 
     def quantize(self, calib_images, size: Optional[int] = None,
@@ -269,24 +250,8 @@ class PoseDetector:
         quantizes its bfloat16 weights (read as float32), as the JAX
         package's does; the heads stay float32, and ``min_side``'s
         forwards keep the bfloat16 model."""
-        if self.quantized:
-            raise ValueError("detector is already quantized")
-        conv7_impl = resolve_conv7_impl(conv7_impl, self.device)
-        size = size or self.cfg.img_size
-        frames = np.stack([resize_u8_linear(np.asarray(img), (size, size))
-                           for img in calib_images])
-        with float32_numerics():
-            ranges = calibrate_ranges(self.model, preprocess_u8(
-                torch.from_numpy(frames).to(self.device)))
-        self.qtree, self.quant_static = quantize(self.arch, self.model,
-                                                 ranges)
-        self._quant_forward = make_quant_apply(
-            self.quant_static,
-            qtree_to_device(self.qtree, self.quant_static, self.device,
-                            pack_kernels=conv7_impl == "kernel"),
-            conv7_impl)
-        self.quantized = True
-        self.conv7_impl = conv7_impl
+        self.net.quantize(calib_images, size or self.cfg.img_size,
+                          preprocess_u8, conv7_impl)
         self._quant_min_side = min_side or 0
         if self.mesh is not None:
             _check_replicated(self.qtree, self.mesh)
@@ -299,30 +264,12 @@ class PoseDetector:
         Inside a meshed ``detect_batch``, ``_slab_forward``."""
         if self._slabs_on:
             return self._slab_forward(x)
-        return self._net(x, weights)
+        return self.net(x, weights, int8=self._int8_for(x))
 
     def _int8_for(self, x: torch.Tensor) -> bool:
         """Whether the input ``x`` takes the int8 forward."""
-        return (self._quant_forward is not None
+        return (self.net.quantized
                 and min(x.shape[1], x.shape[2]) >= self._quant_min_side)
-
-    def _net(self, x: torch.Tensor, weights=None, halo=None,
-             int8: Optional[bool] = None):
-        """``_forward``'s body; ``halo``: the ``SpatialSlabs`` of which
-        ``x`` is this rank's slab; ``int8``: the route, by default
-        ``_int8_for(x)``."""
-        if self._int8_for(x) if int8 is None else int8:
-            if weights is None:
-                return self._quant_forward(x, halo)
-            return quant_apply(self.quant_static, weights, x,
-                               self.conv7_impl)
-        if weights is None:
-            if halo is None:
-                return self.model(x)
-            with spatial_halos(self.model, halo):
-                return self.model(x)
-        return functional_call(
-            self.model, weights["f32"] if self.quantized else weights, (x,))
 
     def _slab_forward(self, x: torch.Tensor):
         """The forward of a spatial mesh's rank on the whole normalized
@@ -332,57 +279,30 @@ class PoseDetector:
         spatial ranks runs whole on every rank (the int8 route is chosen
         on the whole input's short side either way)."""
         rows, n_spatial = x.shape[1], self.mesh.n_spatial
+        int8 = self._int8_for(x)
         if rows // SLAB_MULTIPLE < n_spatial:
-            return self._net(x)
+            return self.net(x, int8=int8)
         slabs = SpatialSlabs.for_height(self.mesh, rows)
         first = sum(slabs.sizes[:slabs.index])
-        outs = self._net(x[:, first:first + slabs.sizes[slabs.index]],
-                         halo=slabs, int8=self._int8_for(x))
+        outs = self.net(x[:, first:first + slabs.sizes[slabs.index]],
+                        halo=slabs, int8=int8)
         return tuple(slabs.gather(maps[-1], 1)[None] for maps in outs)
 
     def host_weights(self):
-        """The weights as host data: a float32 detector's Flax param tree
-        (numpy HWIO kernels, ``quant.model_params``); a quantized one's
-        numpy int8 tree, with the float32 tree under ``"f32"`` when
-        ``min_side`` keeps some forwards in float32 (the JAX package's
-        mixed tree)."""
-        if not self.quantized:
-            return {"params": model_params(self.model)}
-        tree = dict(self.qtree)
-        if self._quant_min_side:
-            tree["f32"] = {"params": model_params(self.model)}
-        return tree
+        """``DetectorNet.host_weights``, the float32 tree riding along when
+        ``min_side`` keeps some forwards in float32."""
+        return self.net.host_weights(f32=bool(self._quant_min_side))
 
     def program_weights(self, device=None):
-        """The weights as a traced program takes them, on ``device``
-        (default: the detector's): a float32 detector's ``state_dict``; a
-        quantized one's ``qtree_to_device`` tree, packed for the kernels on
-        the kernel route, plus ``"f32"``, the ``state_dict``, when
-        ``min_side`` is set."""
-        device = torch.device(device or self.device)
-
-        def state(model):
-            return {k: v.detach().to(device)
-                    for k, v in model.state_dict().items()}
-
-        if not self.quantized:
-            return state(self.model)
-        tree = qtree_to_device(self.qtree, self.quant_static, device,
-                               pack_kernels=self.conv7_impl == "kernel")
-        if self._quant_min_side:
-            tree["f32"] = state(self.model)
-        return tree
+        """``DetectorNet.program_weights`` (default device: the
+        detector's), the float32 ``state_dict`` riding along when
+        ``min_side`` keeps some forwards in float32."""
+        return self.net.program_weights(device,
+                                        f32=bool(self._quant_min_side))
 
     # ------------------------------------------------------------------
     # fast single-scale path
     # ------------------------------------------------------------------
-
-    def _geometry(self, orig_h: int, orig_w: int):
-        input_w, input_h = compute_optimal_size(
-            orig_h, orig_w, self.cfg.img_size, self.cfg.downscale)
-        map_w, map_h = compute_optimal_size(
-            orig_h, orig_w, self.cfg.heatmap_size, self.cfg.downscale)
-        return (input_h, input_w), (map_h, map_w)
 
     def _maps(self, imgs_u8: np.ndarray, map_hw: Tuple[int, int]):
         """(B, H, W, 3) uint8 network-size frames -> channel-first
@@ -405,19 +325,9 @@ class PoseDetector:
         return paf.permute(0, 3, 1, 2), hm.permute(0, 3, 1, 2)
 
     def _fast_fn(self, map_hw: Tuple[int, int]):
-        """The fast-path program: ``(weights, img_u8)``, the (H, W, 3)
-        uint8 frame already resized to the network input -> its
-        ``PoseResult`` at ``map_hw``."""
-
-        def fn(weights, img_u8):
-            paf, hm = self._fast_maps(weights, img_u8[None], map_hw)
-            return self._postprocess(paf[0], hm[0])
-
-        return fn
-
-    def _batch_fn(self, map_hw: Tuple[int, int]):
-        """The batched fast-path program: (B, H, W, 3) uint8 frames -> one
-        ``PoseResult`` with a leading batch axis."""
+        """The fast-path program: ``(weights, imgs_u8)``, (B, H, W, 3)
+        uint8 frames already resized to the network input -> one
+        ``PoseResult`` at ``map_hw`` with a leading batch axis."""
 
         def fn(weights, imgs_u8):
             return self._postprocess(*self._fast_maps(weights, imgs_u8,
@@ -489,20 +399,10 @@ class PoseDetector:
         return self._scale_tail(pafs[-1], heatmaps[-1], padded_hw,
                                 scaled_hw, post_hw)
 
-    def _device_scale_fn(self, post_hw, scaled_hw, padded_hw):
-        """A precise scale's program: ``(weights, orig_u8)``, the original
-        (H, W, 3) uint8 frame -> the scale's channel-last PAFs and heatmaps
-        at ``post_hw``."""
-
-        def fn(weights, orig_u8):
-            paf, hm = self._pyramid_scale_maps(orig_u8[None], scaled_hw,
-                                               padded_hw, post_hw, weights)
-            return paf[0], hm[0]
-
-        return fn
-
-    def _batch_scale_fn(self, post_hw, scaled_hw, padded_hw):
-        """The batched variant of ``_device_scale_fn``: (B, H, W, 3)."""
+    def _scale_fn(self, post_hw, scaled_hw, padded_hw):
+        """A precise scale's program: ``(weights, imgs_u8)``, the original
+        (B, H, W, 3) uint8 frames -> the scale's channel-last PAFs and
+        heatmaps at ``post_hw``."""
 
         def fn(weights, imgs_u8):
             return self._pyramid_scale_maps(imgs_u8, scaled_hw, padded_hw,
@@ -519,18 +419,8 @@ class PoseDetector:
         return paf.movedim(-1, -3), hm.movedim(-1, -3)
 
     def _avg_postprocess_fn(self):
-        """The precise path's last program: the scales' (o_h, o_w, C) maps
-        -> their mean -> the ``PoseResult``."""
-
-        def fn(paf_list, hm_list):
-            return self._postprocess(*self._average(paf_list, hm_list))
-
-        return fn
-
-    def _batch_avg_postprocess_fn(self):
-        """The batched variant of ``_avg_postprocess_fn``: lists of
-        (B, o_h, o_w, C) -> one ``PoseResult`` with a leading batch
-        axis."""
+        """The precise path's last program: the scales' (o_h, o_w, C) maps,
+        a leading batch axis or none -> their mean -> the ``PoseResult``."""
 
         def fn(paf_list, hm_list):
             return self._postprocess(*self._average(paf_list, hm_list))
@@ -655,8 +545,8 @@ class PoseDetector:
                 return self._average(paf_list, hm_list)
         else:
             with annotate("pose.resize"):
-                (in_h, in_w), (map_h, map_w) = self._geometry(orig_h,
-                                                              orig_w)
+                (in_h, in_w), (map_h, map_w) = fast_geometry(
+                    self.cfg, orig_h, orig_w)
                 resized = np.stack([resize_u8_linear(img, (in_w, in_h))
                                     for img in imgs])
             name = f"{self._prefix_for((in_h, in_w))}_fast_{in_h}x{in_w}"

@@ -33,10 +33,9 @@ program calls 80 of them per forward.
 
 The functions below are what the pipeline calls.  Live detectors go
 straight to the wrappers: op dispatch costs host time, and the int8 forward
-is already host-bound.  Inside ``traced_ops()`` (``detectors/portable.py::
-portable_programs`` enters it around an export) they route through the
-ops, so an exported program holds ``tpupose::*`` calls that dispatch by
-device when it runs.
+is already host-bound.  Inside ``traced_ops()`` (``serving.py`` enters it
+around an export) they route through the ops, so an exported program
+holds ``tpupose::*`` calls that dispatch by device when it runs.
 """
 
 from __future__ import annotations

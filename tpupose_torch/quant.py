@@ -428,12 +428,13 @@ def _quantize_dense_stages(graph: DenseArchGraph, a_feat: float,
 
 
 def qtree_to_device(qtree, static: QuantStatic, device,
-                    pack_kernels: bool = False):
-    """The numpy tree as tensors on ``device``.  ``pack_kernels`` adds
-    each non-head layer's kernels in its CUDA kernel's layout, one per
-    group: the 7x7 layers' under ``"conv7_packed"``, the others' under
-    ``"conv_s8_packed"``.  Head scales become 1-element tensors, so the
-    division in ``_quant_sym`` is a true division on every device."""
+                    conv7_impl: str = "im2col"):
+    """The numpy tree as tensors on ``device``, for the route
+    ``conv7_impl``.  The ``"kernel"`` route adds each non-head layer's
+    kernels in its CUDA kernel's layout, one per group: the 7x7 layers'
+    under ``"conv7_packed"``, the others' under ``"conv_s8_packed"``.
+    Head scales become 1-element tensors, so the division in
+    ``_quant_sym`` is a true division on every device."""
     device = torch.device(device)
 
     def t(a):
@@ -448,7 +449,7 @@ def qtree_to_device(qtree, static: QuantStatic, device,
         if "slope" in spec:
             out["slope"] = t(spec["slope"])
         meta = static.layer_meta[path]
-        if pack_kernels and not meta["f32_out"]:
+        if conv7_impl == "kernel" and not meta["f32_out"]:
             if meta["ksize"] == 7:
                 out["conv7_packed"] = tuple(pack_conv7_weights(k)
                                             for k in kernels)
@@ -669,8 +670,8 @@ def qtree_to_flat(qtree) -> Dict[str, np.ndarray]:
 
 def qtree_from_flat(flat: Dict[str, np.ndarray]):
     """Inverse of ``qtree_to_flat``: all-digit dict levels fold back into
-    tuples.  ``qtree_to_device(..., pack_kernels=True)`` then rebuilds the
-    kernels' packed weights, which are never stored."""
+    tuples.  ``qtree_to_device(..., "kernel")`` then rebuilds the kernels'
+    packed weights, which are never stored."""
     root: dict = {}
     for key, arr in flat.items():
         parts = key.split(_FLAT_SEP)

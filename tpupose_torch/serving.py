@@ -27,7 +27,7 @@ Layout of a bundle directory::
 ``platforms`` are taken from ``("cpu", "cuda")``.  Programs are traced on
 fake tensors of the platform's device (no data, nothing stored twice);
 CUDA programs need CUDA to trace.  The kernels stay in the programs as
-``tpupose::*`` ops (``detectors/portable.py``): on the card a program
+``tpupose::*`` ops (``ops/library.py::traced_ops``): on the card a program
 launches the hand kernels, which count their launches in their wrappers
 as in a live forward; on the CPU it runs their plain versions.
 
@@ -53,11 +53,12 @@ from torch.utils import _pytree as pytree
 from tpupose_torch import config as config_mod
 from tpupose_torch.config import InferenceConfig
 from tpupose_torch.detectors.crop_keypoints import CropKeypointDetector
-from tpupose_torch.detectors.pose import (emit_result, float32_numerics,
-                                          results_to_host)
-from tpupose_torch.detectors.portable import portable_programs
+from tpupose_torch.detectors.net import float32_numerics
+from tpupose_torch.detectors.pose import (emit_result, fast_geometry,
+                                          results_to_host, single_frame)
+from tpupose_torch.ops.library import traced_ops
 from tpupose_torch.ops.postprocess import PoseResult
-from tpupose_torch.ops.resize import compute_optimal_size, resize_u8_linear
+from tpupose_torch.ops.resize import resize_u8_linear
 from tpupose_torch.quant import (qtree_from_flat, qtree_to_device,
                                  qtree_to_flat, static_from_dict,
                                  static_to_dict)
@@ -74,16 +75,6 @@ _META = "meta.json"
 _PARAMS = "params.npz"
 _QUANT_DTYPE = "quant-w8a8"
 PLATFORMS = ("cpu", "cuda")
-
-
-def _geometry(cfg: InferenceConfig, orig_h: int, orig_w: int):
-    """The fast path's (input_hw, map_hw) for an original image size, the
-    arithmetic of ``PoseDetector._geometry``."""
-    input_w, input_h = compute_optimal_size(
-        orig_h, orig_w, cfg.img_size, cfg.downscale)
-    map_w, map_h = compute_optimal_size(
-        orig_h, orig_w, cfg.heatmap_size, cfg.downscale)
-    return (input_h, input_w), (map_h, map_w)
 
 
 def _canonical(tree):
@@ -200,66 +191,51 @@ def save_bundle(det, path: str, image_sizes: List[Tuple[int, int]],
     ex = _Exporter(path, platforms, _canonical(det.program_weights("cpu")))
     u8, f32 = torch.uint8, torch.float32
 
+    mode = "precise" if det.precise else "fast"
+    channels = (det.topology.paf_channels, det.topology.heatmap_channels)
     geoms: Dict[str, dict] = {}
-    with portable_programs(det), float32_numerics():
+    with traced_ops(), float32_numerics():
         for orig_h, orig_w in image_sizes:
             key = f"{orig_h}x{orig_w}"
             if det.precise:
                 post_hw = det._postprocess_hw(orig_h, orig_w)
                 pyramid = det._pyramid_geometries(orig_h, orig_w)
-                n = len(pyramid)
+                sizes = {"post_hw": list(post_hw)}
+            else:
+                in_hw, map_hw = fast_geometry(det.cfg, orig_h, orig_w)
+                sizes = {"in_hw": list(in_hw), "map_hw": list(map_hw)}
 
-                def scale_programs(prefix, make_fn, lead):
-                    return [ex.write(
-                        make_fn(post_hw, scaled_hw, padded_hw),
+            def programs(prefix, lead):
+                """The geometry's programs on ``lead`` frames: ``(b,)``, a
+                batch, or ``()``, one frame (``single_frame``)."""
+                adapt = (lambda fn: fn) if lead else single_frame
+                if not det.precise:
+                    return {"program": ex.write(
+                        adapt(det._fast_fn(map_hw)), prefix,
+                        lambda p: (ex.spec((*lead, *in_hw, 3), u8, p),))}
+                return {
+                    "scale_programs": [ex.write(
+                        adapt(det._scale_fn(post_hw, scaled_hw, padded_hw)),
                         f"{prefix}_scale{k}",
                         lambda p: (ex.spec((*lead, orig_h, orig_w, 3), u8,
                                            p),))
                         for k, (_, scaled_hw, padded_hw) in
-                        enumerate(pyramid)]
-
-                def avg_program(prefix, fn, lead):
-                    return ex.write(
-                        fn, f"{prefix}_avg",
+                        enumerate(pyramid)],
+                    "avg_program": ex.write(
+                        det._avg_postprocess_fn(), f"{prefix}_avg",
                         lambda p: [[ex.spec((*lead, *post_hw, c), f32, p)
-                                    for _ in range(n)] for c in (38, 19)],
-                        weights=False)
+                                    for _ in pyramid] for c in channels],
+                        weights=False)}
 
-                prefix = f"precise_{key}"
-                geoms[key] = {
-                    "scale_programs": scale_programs(
-                        prefix, det._device_scale_fn, ()),
-                    "avg_program": avg_program(
-                        prefix, det._avg_postprocess_fn(), ()),
-                    "post_hw": list(post_hw),
-                }
-                batched: Dict[str, dict] = {}
-                for b in batch_sizes:
-                    bprefix = f"precise_{key}_b{b}"
-                    batched[str(b)] = {
-                        "scale_programs": scale_programs(
-                            bprefix, det._batch_scale_fn, (b,)),
-                        "avg_program": avg_program(
-                            bprefix, det._batch_avg_postprocess_fn(), (b,)),
-                    }
-            else:
-                in_hw, map_hw = _geometry(det.cfg, orig_h, orig_w)
-                geoms[key] = {
-                    "program": ex.write(
-                        det._fast_fn(map_hw), f"fast_{key}",
-                        lambda p: (ex.spec((*in_hw, 3), u8, p),)),
-                    "in_hw": list(in_hw), "map_hw": list(map_hw)}
-                batched = {}
-                for b in batch_sizes:
-                    batched[str(b)] = {"program": ex.write(
-                        det._batch_fn(map_hw), f"fast_{key}_b{b}",
-                        lambda p, b=b: (ex.spec((b, *in_hw, 3), u8, p),))}
+            geoms[key] = {**programs(f"{mode}_{key}", ()), **sizes}
+            batched = {str(b): programs(f"{mode}_{key}_b{b}", (b,))
+                       for b in batch_sizes}
             if batched:
                 geoms[key]["batched"] = batched
 
     meta = {
         "arch": det.arch,
-        "mode": "precise" if det.precise else "fast",
+        "mode": mode,
         "params_dtype": params_dtype,
         "cfg": dataclasses.asdict(det.cfg),
         "platforms": list(platforms),
@@ -365,9 +341,8 @@ def load_params(path: str, meta: dict, device):
         tree = qtree_from_flat(flat)
         f32 = tree.pop("f32", None)
         static = static_from_dict(meta["quant_static"])
-        weights = qtree_to_device(
-            tree, static, device,
-            pack_kernels=meta.get("conv7_impl") == "kernel")
+        weights = qtree_to_device(tree, static, device,
+                                  meta.get("conv7_impl", "im2col"))
         if f32 is not None:
             weights["f32"] = tensors(state_dict_from_flax(f32))
         return _canonical(weights)
@@ -573,13 +548,14 @@ def save_crop_bundle(det, path: str, crop_sizes: List[Tuple[int, int]],
     platforms = _check_platforms(platforms)
     params_dtype = _params_dtype(det)
     os.makedirs(path, exist_ok=True)
-    _save_params(path, det.host_weights(), params_dtype)
-    ex = _Exporter(path, platforms, _canonical(det.program_weights("cpu")))
+    _save_params(path, det.net.host_weights(), params_dtype)
+    ex = _Exporter(path, platforms,
+                   _canonical(det.net.program_weights("cpu")))
     s = det.cfg.img_size
     net_hw = (s // 8, s // 8)
     num_ch = det.cfg.num_keypoints + 1
     forwards, tails = {}, {}
-    with portable_programs(det), float32_numerics():
+    with traced_ops(), float32_numerics():
         for b in batch_sizes:
             forwards[str(b)] = ex.write(
                 det._batch_forward_fn(), f"crop_forward_b{b}",

@@ -148,9 +148,10 @@ def load_chainer_npz(model: nn.Module, path: str) -> Dict[str, list]:
 
 
 def state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
-    """A Flax param tree (``params[block][layer]["conv"]``, HWIO kernels)
-    -> the torch models' ``state_dict`` keys and OIHW layout, as float32
-    numpy arrays; no model is built."""
+    """A Flax param tree (``params[block][layer]["conv"]``, HWIO kernels,
+    and a PReLU layer's ``["prelu"]["slope"]``) -> the torch models'
+    ``state_dict`` keys and OIHW layout, as float32 numpy arrays; no model
+    is built."""
     params = params.get("params", params)
     out = {}
     for block, layers in params.items():
@@ -160,6 +161,9 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
                 np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1))
             out[f"{block}.{layer}.conv.bias"] = np.asarray(conv["bias"],
                                                            np.float32)
+            if "prelu" in leaves:
+                out[f"{block}.{layer}.prelu.weight"] = np.asarray(
+                    leaves["prelu"]["slope"], np.float32)
     return out
 
 
