@@ -31,8 +31,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    per batch, that poses were found, that both entry points agree, that
    the card's postprocess (the kernels) equals the CPU one (the plain
    versions) on the same maps, and that the card's maps agree with a CPU
-   forward.  ``submit`` runs under ``torch.cuda.set_sync_debug_mode(
-   "error")``: a synchronising call before ``collect`` fails the phase
+   forward, and that a frame runs the compiled host resize once and gives
+   the pose table the numpy plain resize gives.  ``submit`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")``: a synchronising call
+   before ``collect`` fails the phase
    (so on the int8 fast path in phase 5, precise f32 and int8 in phase 6
    and bf16 in phase 11).
 3b. The device postprocess (``run_device_postprocess``): greedy_match and
@@ -435,6 +437,38 @@ def _same_tables(a, b, score_atol):
             and np.allclose(sa, sb, rtol=0, atol=score_atol))
 
 
+def check_host_resize(det, frame):
+    """A fast-path frame resizes on the host once, with the compiled
+    ``resize_u8_linear``, and its pose table equals the one the numpy plain
+    version's bytes give."""
+    import numpy as np
+
+    from tpupose_torch.detectors import pose as pose_mod
+    from tpupose_torch.ops import resize as rs
+
+    calls = rs.resize_u8_linear.calls
+    compiled = det(frame)
+    if rs.resize_u8_linear.calls - calls != 1:
+        raise AssertionError(f"one fast-path frame ran the compiled resize "
+                             f"{rs.resize_u8_linear.calls - calls} times")
+
+    def plain_into(img, size, out):
+        out[...] = rs.resize_u8_linear_plain(img, size)
+        return out
+
+    pose_mod.resize_u8_linear = plain_into
+    try:
+        plain = det(frame)
+    finally:
+        pose_mod.resize_u8_linear = rs.resize_u8_linear
+    same = (np.array_equal(compiled[0], plain[0])
+            and np.array_equal(compiled[1], plain[1]))
+    print(f"host resize: 1 compiled call a fast-path frame, pose table "
+          f"equal to the plain resize's: {same} ({len(compiled[0])} poses)")
+    if not same:
+        raise AssertionError("the compiled host resize changed the table")
+
+
 def run_slice(cfg, frames):
     """Phase 3 on (B, H, W, 3) uint8 ``frames``; returns the kernels'
     launches counted over the main path and the calibrated detector."""
@@ -449,7 +483,8 @@ def run_slice(cfg, frames):
     from tpupose_torch.ops.paf import compute_connections
     from tpupose_torch.ops.peaks import find_peaks
     from tpupose_torch.ops.postprocess import postprocess_pose
-    from tpupose_torch.ops.resize import resize_chainer, resize_u8_linear
+    from tpupose_torch.ops.resize import (resize_chainer, resize_u8_linear,
+                                          resize_u8_linear_plain)
     from tpupose_torch.utils.calibrate import calibrate_output_convs
     from tpupose_torch.config import LIMBS_FROM, LIMBS_TO
 
@@ -495,6 +530,7 @@ def run_slice(cfg, frames):
         if not _same_tables(a, b, score_atol=1e-4):
             raise AssertionError(f"frame {i}: __call__ != detect_batch")
     check_path_shapes("fast f32 path", cfg, shapes)
+    check_host_resize(det, frames[0])
 
     # --- card postprocess vs CPU postprocess on the same maps ---
     (paf, hm), _ = det.compute_maps(frames[0])
@@ -544,6 +580,8 @@ def run_slice(cfg, frames):
         split = {
             "host_resize_ms": _host_ms(
                 lambda: resize_u8_linear(frames[0], (in_w, in_h)), 5),
+            "host_resize_plain_ms": _host_ms(
+                lambda: resize_u8_linear_plain(frames[0], (in_w, in_h)), 5),
             "forward_ms": _cuda_ms(lambda: det.model(x), 5),
             "map_resize_ms": _cuda_ms(lambda: (
                 resize_chainer(pafs[-1], map_hw),

@@ -94,27 +94,35 @@ def test_compute_optimal_size_matches_jax():
                     == jresize.compute_optimal_size(h, w, target))
 
 
+# The compiled host resize and its numpy plain version, both held to cv2.
+U8_LINEAR = pytest.mark.parametrize(
+    "resize_u8_linear", [tresize.resize_u8_linear,
+                         tresize.resize_u8_linear_plain],
+    ids=["compiled", "plain"])
+
+
+@U8_LINEAR
 @pytest.mark.parametrize("hw,size", [
     ((480, 640), (496, 368)), ((480, 640), (432, 320)),
     ((100, 130), (96, 72)), ((37, 53), (48, 64)), ((5, 7), (2, 3)),
 ])
-def test_resize_u8_linear_matches_cv2(hw, size):
+def test_resize_u8_linear_matches_cv2(hw, size, resize_u8_linear):
     cv2 = pytest.importorskip("cv2")
     rng = np.random.RandomState(hw[0])
     for shape in (hw + (3,), hw):
         img = rng.randint(0, 256, shape).astype(np.uint8)
         ref = cv2.resize(img, size)
-        got = tresize.resize_u8_linear(img, size)
+        got = resize_u8_linear(img, size)
         assert got.shape == ref.shape and got.dtype == np.uint8
         # cv2's fixed-point arithmetic is emulated; at most 1 LSB apart.
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
-def test_resize_u8_linear_same_size_is_copy():
+@U8_LINEAR
+def test_resize_u8_linear_same_size_is_copy(resize_u8_linear):
     img = np.random.RandomState(0).randint(0, 256, (9, 11, 3)).astype(
         np.uint8)
-    np.testing.assert_array_equal(tresize.resize_u8_linear(img, (11, 9)),
-                                  img)
+    np.testing.assert_array_equal(resize_u8_linear(img, (11, 9)), img)
 
 
 # ------------------------------------------------------ gaussian, NMS

@@ -6,8 +6,9 @@ path, the precise multi-scale pyramid, and the w8a8 int8 forward.
 skeleton (``models.ARCHS[arch].topology``: 18 for ``posenet``, 25 for
 ``body25``), which the whole postprocess reads.
 
-Fast path, per frame: a host resize of the uint8 frame (numpy emulation of
-cv2's INTER_LINEAR, so no cv2 is needed), ``/255 - 0.5``, the net
+Fast path, per frame: a host resize of the uint8 frame (cv2's
+INTER_LINEAR in compiled C++, ``resize_u8_linear``, so no cv2 is needed)
+into its slot of the batch, ``/255 - 0.5``, the net
 (CocoPoseNet or BODY_25), an align-corners resize of the last stage's maps,
 then the whole postprocess on the detector's device, and one device-to-host
 copy of the result.
@@ -547,8 +548,10 @@ class PoseDetector(NetHolder):
             with annotate("pose.resize"):
                 (in_h, in_w), (map_h, map_w) = fast_geometry(
                     self.cfg, orig_h, orig_w)
-                resized = np.stack([resize_u8_linear(img, (in_w, in_h))
-                                    for img in imgs])
+                resized = np.empty((len(imgs), in_h, in_w) + imgs.shape[3:],
+                                   np.uint8)
+                for img, slot in zip(imgs, resized):
+                    resize_u8_linear(img, (in_w, in_h), out=slot)
             name = f"{self._prefix_for((in_h, in_w))}_fast_{in_h}x{in_w}"
 
             def maps():

@@ -1,6 +1,8 @@
-"""Resizes as dense interpolation matmuls, numpy emulations of cv2's uint8
-bilinear and bicubic resizes (port of ``tpupose/ops/resize.py``), and the
-batched uint8 bilinear resize of packed images on the card.
+"""Resizes as dense interpolation matmuls, cv2's uint8 bilinear resize on
+the host (compiled, ``native/resize_u8_host.cpp``, with its numpy plain
+version) and a numpy emulation of its bicubic one (port of
+``tpupose/ops/resize.py``), and the batched uint8 bilinear resize of packed
+images on the card.
 
 The three matrix builders and ``compute_optimal_size`` are copies of the JAX
 module's numpy code (that module imports ``jax.numpy``, which this package
@@ -22,11 +24,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tpupose_torch import native
 from tpupose_torch.ops import _cuda_build
 from tpupose_torch.ops.upload import to_device
 
@@ -178,8 +182,16 @@ def _cv2_linear_taps(in_size: int, out_size: int, clamp: bool):
     return src, c0, c1
 
 
-def resize_u8_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """``cv2.resize(img, (w, h))`` for uint8 HW or HWC images, in numpy.
+def _check_u8_image(img: np.ndarray) -> None:
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"expected a uint8 HW or HWC image, got "
+                         f"{img.dtype} {img.shape}")
+
+
+def resize_u8_linear_plain(img: np.ndarray, size: Tuple[int, int]
+                           ) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` for uint8 HW or HWC images, in numpy: the
+    plain version of ``resize_u8_linear``.
 
     Emulates cv2's fixed-point INTER_LINEAR: 11-bit coefficients, an exact
     integer horizontal pass, and the vertical pass with the descale of its
@@ -187,9 +199,7 @@ def resize_u8_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     is ``(width, height)`` as cv2 takes it.
     """
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3):
-        raise ValueError(f"expected a uint8 HW or HWC image, got "
-                         f"{img.dtype} {img.shape}")
+    _check_u8_image(img)
     w, h = size
     in_h, in_w = img.shape[:2]
     if (in_h, in_w) == (h, w):
@@ -207,6 +217,71 @@ def resize_u8_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
            + ((s1 * b1[:, None, None]) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8).reshape(
         (h, w) + img.shape[2:])
+
+
+@functools.lru_cache(maxsize=64)
+def _host_taps(in_size: int, out_size: int, clamp: bool):
+    """``_cv2_linear_taps`` as read-only contiguous int32 arrays."""
+    taps = tuple(np.ascontiguousarray(t, np.int32)
+                 for t in _cv2_linear_taps(in_size, out_size, clamp))
+    for t in taps:
+        t.flags.writeable = False
+    return taps
+
+
+@functools.lru_cache(maxsize=1)
+def _host_library() -> ctypes.CDLL:
+    return native.load_resize_u8()
+
+
+def resize_u8_linear(img: np.ndarray, size: Tuple[int, int],
+                     out: np.ndarray = None) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` for uint8 HW or HWC images (any channel
+    count): ``resize_u8_linear_plain``'s bytes, computed by the compiled
+    ``native/resize_u8_host.cpp`` on one host thread (cv2's separable
+    fixed-point INTER_LINEAR with buffered rows).  The library is built at
+    first use; a failed build raises, there is no fallback.
+
+    ``size`` is ``(width, height)`` as cv2 takes it.  ``out``, if given, is
+    a C-contiguous uint8 array of the result's shape that receives it (a
+    slot of a batch) and is returned.  A non-contiguous input (a mirrored
+    view) is made contiguous first; an input already of the size is copied.
+    Each image the compiled routine resizes adds one to
+    ``resize_u8_linear.calls``."""
+    img = np.asarray(img)
+    _check_u8_image(img)
+    w, h = (int(v) for v in size)
+    in_h, in_w = img.shape[:2]
+    cn = img.shape[2] if img.ndim == 3 else 1
+    shape = (h, w) + img.shape[2:]
+    if min(in_h, in_w, cn, h, w) < 1 or max(h * w, in_w) * cn > 2**31 - 1:
+        raise ValueError(f"cannot resize a {img.shape} image to {size}")
+    if out is None:
+        out = np.empty(shape, np.uint8)
+    elif (not isinstance(out, np.ndarray) or out.dtype != np.uint8
+          or out.shape != shape or not out.flags.c_contiguous
+          or not out.flags.writeable):
+        raise ValueError(f"out must be a writeable C-contiguous uint8 array "
+                         f"of shape {shape}")
+    if (in_h, in_w) == (h, w):
+        out[...] = img
+        return out
+    src = np.ascontiguousarray(img)
+    sx, a0, a1 = _host_taps(in_w, w, True)
+    sy, b0, b1 = _host_taps(in_h, h, False)
+    rc = _host_library().resize_u8_linear_host(
+        src.ctypes.data, in_h, in_w, cn, out.ctypes.data, h, w,
+        sx.ctypes.data, a0.ctypes.data, a1.ctypes.data,
+        sy.ctypes.data, b0.ctypes.data, b1.ctypes.data)
+    if rc != 0:
+        raise MemoryError("resize_u8_linear: no memory for the row buffers")
+    with _calls_lock:
+        resize_u8_linear.calls += 1
+    return out
+
+
+resize_u8_linear.calls = 0
+_calls_lock = threading.Lock()
 
 
 # Must equal RESIZE_U8_MAX_ITEMS and RESIZE_U8_MAX_OUT_W in
@@ -421,9 +496,7 @@ def resize_u8_cubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     rounds ~5% of the values one level the other way.
     """
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3):
-        raise ValueError(f"expected a uint8 HW or HWC image, got "
-                         f"{img.dtype} {img.shape}")
+    _check_u8_image(img)
     w, h = size
     in_h, in_w = img.shape[:2]
     if (in_h, in_w) == (h, w):
