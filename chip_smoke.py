@@ -140,6 +140,23 @@ counters; greedy_match and group_fold on planted tables of each shape).
    and timed from CUDA-graph replays, three of them
    (``BODY25_PLAIN_TIMED``) beside the plain route and ``_int_mm``.
    Alone: ``python3 scripts/body25_probe.py``.
+   Phase 8c: the refine kernel (``check_ae_refine``, ``csrc/ae_refine.cu``)
+   bit-equal to ``refine_argmax_plain`` at the cell's 17x512x960 maps
+   with 280 and 646 pairs (a joint of 40 pairs, past a block's 16),
+   seeded and plateau maps, planted ties and -0 beside +0, one launch a
+   call; its time from CUDA-graph replays beside the plain version's on
+   the same inputs, its enqueue and its bound (``refine_bound_s``).
+   Then (``run_higherhrnet``) ``PoseDetector("higherhrnet_w32")`` on
+   three seeded 720x1280 frames (a 512x960 input, the flip test as one
+   batch-2 f32 forward) with the benchmark's seeded, calibrated weights:
+   ``submit`` makes no synchronising call; the (N, 17, 3) poses and the
+   scores equal the benchmark's reference (``posebench/reference/
+   higherhrnet.py``, BN folded) bit for bit; the decode's counters a
+   frame; the refine kernel re-checked at every shape the path gave it;
+   the card's busy time a frame in the spans ``hr.stem``, ``hr.stages``,
+   ``hr.head``, ``ae.topk`` and ``ae.refine`` from a profiled stretch,
+   launches a frame, the host's frame time and the peak memory.  Alone:
+   ``python3 scripts/higherhrnet_probe.py``.
 9. Drive the serving path (``apps/serve.py``, ``serving.py``,
    ``detectors/bucketed.py``) with raw ``application/octet-stream``
    requests to ``make_server`` servers on port 0: over the f32 and the
@@ -1082,6 +1099,7 @@ def check_path_shapes(label, cfg, shapes):
     import torch
 
     from tpupose_torch.config import HandConfig
+    from tpupose_torch.ops import ae_decode as ae
     from tpupose_torch.ops import blur_nms as bn
     from tpupose_torch.ops import conv7 as c7
     from tpupose_torch.ops import conv_s8 as cs
@@ -1169,6 +1187,17 @@ def check_path_shapes(label, cfg, shapes):
                 raise AssertionError(f"{label}: crop_tails disagrees on "
                                      f"{len(items)} crops of ({h}, {w}, "
                                      f"{c}) maps {items[:4]}...")
+    refines = sorted(shapes.get("refine_argmax", {}))
+    for nj, hw, per_joint in refines:
+        joints = np.repeat(np.arange(nj), per_joint)
+        det = torch.rand(nj, hw, generator=gen, device="cuda") - 0.5
+        tg = torch.rand(2, nj, hw, generator=gen, device="cuda") * 4 - 2
+        m = torch.rand(len(joints), 2, generator=gen, device="cuda") * 3 - 1.5
+        if not torch.equal(ae.refine_argmax(det, tg, m, joints),
+                           ae.refine_argmax_plain(det, tg, m, joints)):
+            raise AssertionError(f"{label}: refine_argmax disagrees at "
+                                 f"{(nj, hw)} with {len(joints)} pairs "
+                                 f"{per_joint}")
     torch.cuda.synchronize()
     sides = [s for *_, items in resizes for h, w, _ in items for s in (h, w)]
     tail_sides = [s for *_, items in tails for th, tw, _ in items
@@ -1188,7 +1217,8 @@ def check_path_shapes(label, cfg, shapes):
           f"{sorted({(h, w) for h, w, _ in resizes})}), crop_tails "
           f"{len(tails)} batches of {sum(len(items) for *_, items in tails)} "
           f"crops (maps {sorted({key[:3] for key in tails})}, target sides "
-          f"{min(tail_sides, default=None)}-{max(tail_sides, default=None)})")
+          f"{min(tail_sides, default=None)}-{max(tail_sides, default=None)})"
+          f", refine_argmax {[(nj, hw, sum(pj)) for nj, hw, pj in refines]}")
 
 
 def _crop_maps(rng, b, h, w, c):
@@ -1490,6 +1520,219 @@ def _calibrate_body25(det, frame):
         heads["stage1_L1"].bias.mul_(gain)
 
 
+HR_SEED = 2**31 + 2021
+HR_SPANS = ("hr.stem", "hr.stages", "hr.head", "ae.topk", "ae.refine")
+# refine's cases at the cell's 17 x 512 x 960 maps: pairs of each joint
+# (about the cell's pairs a frame, one joint past a block's 16; and twice
+# the joints' counts past the cell's most), seeded and plateau maps
+REFINE_HW = (512, 960)
+REFINE_PAIRS = ([15, 15, 40] + [15] * 14, [38] * 17)
+
+
+def _refine_case(gen, per_joint, h, w, plateau):
+    """(J, HW) heatmaps, (2, J, HW) tags, (K, 2) mean tags and the pairs'
+    joints on the card, J = ``len(per_joint)``: uniform maps, or plateau
+    heatmaps (one value a joint: the first pixel of the least rounded tag
+    distance wins).  Planted: joint 0's first pair's best score at two
+    pixels (the first wins); joint 1 at -1 but for -0 at pixel 17 and +0
+    at pixel 300, its tags at its pairs' means (the two tie; 17 wins)."""
+    import numpy as np
+    import torch
+
+    nj, hw = len(per_joint), h * w
+    joints = np.repeat(np.arange(nj), per_joint)
+    dev = "cuda"
+    if plateau:
+        det = (torch.rand(nj, 1, generator=gen, device=dev) * 0.7
+               - 0.2).expand(nj, hw).contiguous()
+    else:
+        det = torch.rand(nj, hw, generator=gen, device=dev) * 0.7 - 0.5
+    tg = torch.rand(2, nj, hw, generator=gen, device=dev) * 4.0 - 2.0
+    m = torch.rand(len(joints), 2, generator=gen, device=dev) * 3.0 - 1.5
+    early, late = 1234, hw - 5
+    det[0, early] = det[0, late] = 0.9
+    m[0] = 0.5
+    tg[:, 0, early] = tg[:, 0, late] = 0.5
+    det[1] = -1.0
+    det[1, 17], det[1, 300] = -0.0, 0.0
+    tg[:, 1] = 0.25
+    m[torch.from_numpy(joints == 1).to(dev)] = 0.25
+    return det, tg, m, joints
+
+
+def _refine_launcher(flat, tg, m, joints):
+    """The refine kernel's launch alone on inputs already on the card (the
+    wrapper copies the pair table from the host first, which a CUDA graph
+    cannot capture): a closure and the groups it scores."""
+    import numpy as np
+    import torch
+
+    from tpupose_torch.ops import _cuda_build
+    from tpupose_torch.ops import ae_decode as ae
+
+    nj, hw = flat.shape
+    order, groups = ae._groups(np.asarray(joints))
+    o = torch.from_numpy(order).cuda()
+    g = torch.from_numpy(groups).cuda()
+    best = torch.zeros(len(joints), dtype=torch.int64, device="cuda")
+    lib = ae._refine_library()
+
+    def launch():
+        best.zero_()
+        err = lib.ae_refine_launch(
+            flat.data_ptr(), tg.data_ptr(), m.data_ptr(), g.data_ptr(),
+            o.data_ptr(), best.data_ptr(), len(groups), nj, hw,
+            torch.cuda.current_stream().cuda_stream)
+        _cuda_build.check(lib, "ae_refine", err)
+    return launch, len(groups)
+
+
+def refine_bound(pairs, groups, hw):
+    """(least ms, "bytes" or "operations") of the refine kernel:
+    ``posebench/reference/higherhrnet.py::refine_bound_s``, and which of
+    its two terms sets it."""
+    from posebench.core import flops
+    from posebench.reference import higherhrnet as ref
+
+    t_bytes = (12.0 * hw * groups + 20.0 * pairs) / flops.HBM_BYTES_PER_S
+    t_ops = 8.0 * pairs * hw / flops.F32_OPS_PER_S
+    return (ref.refine_bound_s(pairs, groups, hw) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ae_refine():
+    """Phase 8c, the refine kernel (``csrc/ae_refine.cu``): bit-equal to
+    ``refine_argmax_plain`` on the card at the cell's 17 x 512 x 960 maps,
+    for ``REFINE_PAIRS`` (280 and 646 pairs; a joint of 40, past a block's
+    16), on seeded and plateau maps with ``_refine_case``'s planted ties
+    and -0 beside +0, one launch a call.  At the 280 pairs on seeded maps:
+    its time from CUDA-graph replays of its launch, the plain version's
+    by CUDA events over the same inputs, the wrapper's host enqueue, and
+    its bound.  Returns its record, the largest |kernel - plain| pixel
+    index as its error."""
+    import torch
+
+    from tpupose_torch.ops import ae_decode as ae
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    h, w = REFINE_HW
+    err = 0.0
+    for per_joint in REFINE_PAIRS:
+        for plateau in (False, True):
+            det, tg, m, joints = _refine_case(gen, per_joint, h, w, plateau)
+            before = ae.refine_argmax.launches
+            got = ae.refine_argmax(det, tg, m, joints)
+            plain = ae.refine_argmax_plain(det, tg, m, joints)
+            case_err = (got - plain).abs().max().item()
+            first = [int(got[0]), int(got[int(per_joint[0])])]
+            if (not torch.equal(got, plain)
+                    or ae.refine_argmax.launches != before + 1
+                    or first != [1234, 17]):
+                raise AssertionError(
+                    f"ae_refine disagrees on {len(joints)} pairs at "
+                    f"{(len(per_joint), h, w)} (plateau {plateau}) by "
+                    f"{case_err}; planted pixels {first}")
+            err = max(err, case_err)
+    print(f"ae_refine: bit-equal to refine_argmax_plain at "
+          f"{(17, h, w)} for {[sum(p) for p in REFINE_PAIRS]} pairs "
+          f"(a joint of 40), seeded and plateau maps, planted ties and "
+          f"-0/+0 (first pixel kept), one launch a call")
+
+    per_joint = REFINE_PAIRS[0]
+    det, tg, m, joints = _refine_case(gen, per_joint, h, w, False)
+    launch, groups = _refine_launcher(det, tg, m, joints)
+    times = {"kernel": _graph_ms(launch, 20),
+             "plain": _cuda_ms(lambda: ae.refine_argmax_plain(det, tg, m,
+                                                              joints), 3)}
+    enqueue = _enqueue_ms(lambda: ae.refine_argmax(det, tg, m, joints), 50)
+    bound, bound_by = refine_bound(len(joints), groups, h * w)
+    print(f"ae_refine at {(17, h, w)}, {len(joints)} pairs in {groups} "
+          f"groups: kernel {times['kernel']!r} ms (CUDA-graph replays of 20 "
+          f"launches), plain {times['plain']!r} ms (CUDA events over eager "
+          f"calls, the same inputs), bound {bound!r} ms ({bound_by}), "
+          f"share {100.0 * bound / times['kernel']!r}%; wrapper enqueue "
+          f"{enqueue!r} ms on the host")
+    return err, times["kernel"], times["plain"], (bound, bound_by)
+
+
+def run_higherhrnet(smi: str, n_traced: int = 10, device: str = "cuda",
+                    frame_hw=(720, 1280), input_size: int = 512):
+    """Phase 8c: HigherHRNet-W32 on three seeded frames with the
+    benchmark's seeded, calibrated weights, against its reference; the
+    refine kernel re-checked at every shape the path gave it; the card's
+    time a frame split by span.  Returns (the split, the kernels'
+    launches).  ``device``, ``frame_hw`` and ``input_size`` shrink it for
+    a rehearsal on the CPU."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from posebench import run as bench_run
+    from posebench.core import inputs, launch_spans, registry, trace
+    from posebench.reference import higherhrnet as ref
+    from tpupose_torch.config import INFERENCE
+    from tpupose_torch.detectors.pose import PoseDetector
+    from tpupose_torch.ops import ae_decode as ae
+
+    cfg = registry.config("higherhrnet_w32")
+    cfg["input_size"] = input_size
+    frames = inputs.seeded_frames(HR_SEED, 3, tuple(frame_hw), device)
+    params = ref.seeded_params(cfg, HR_SEED, device)
+    ref.calibrate(cfg, params, frames, device)
+    det = PoseDetector("higherhrnet_w32", device=device,
+                       cfg=ae.AEConfig(input_size=input_size))
+    det.model.load_state_dict(params)
+    check_no_sync("higherhrnet_w32 f32", det, frames[1])
+    counts = lambda: np.array([ae.ae_decode.candidates,  # noqa: E731
+                               ae.ae_decode.persons, ae.ae_decode.refined,
+                               ae.ae_decode.refilled])
+    if device == "cuda":
+        _reset_counts()
+    before = counts()
+    got = [det(f) for f in frames]
+    per_frame = (counts() - before) / len(frames)
+    launches = _read_counts() if device == "cuda" else {}
+    want = ref.pose_answers(cfg, params, frames, device)
+    for k, ((poses, scores), (rp, rs, most, _)) in enumerate(zip(got, want)):
+        same = (poses.shape == rp.shape and np.array_equal(poses, rp)
+                and np.array_equal(scores, rs))
+        print(f"higherhrnet_w32 frame {k}: {len(poses)} persons, reference "
+              f"{len(rp)}, most candidates of a joint {most}; equal: {same}")
+        if not same:
+            raise AssertionError("higherhrnet_w32: poses != the reference")
+    print(f"higherhrnet_w32 decode a frame: candidates {per_frame[0]:.1f}, "
+          f"persons {per_frame[1]:.1f}, (person, joint) pairs refined "
+          f"{per_frame[2]:.1f}, joints refilled {per_frame[3]:.1f}")
+    if device == "cuda":
+        check_path_shapes("higherhrnet_w32 f32 path", INFERENCE,
+                          _read_shapes())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n_traced):
+        det(frames[k % len(frames)])
+    host_ms = (time.perf_counter() - t0) * 1e3 / n_traced
+    torch.cuda.reset_peak_memory_stats()
+    evs, _, failed, secs = bench_run.traced(
+        lambda i: det(frames[i]), len(frames), n_traced, device, 0, True)
+    if failed:
+        raise AssertionError(f"higherhrnet_w32: {failed} traced calls failed")
+    ctx = types.SimpleNamespace(events=evs, requests_traced=n_traced)
+    ctx.t0, ctx.t1 = trace.frame_window(evs)
+    split = {span: launch_spans.busy_ms_per_request(ctx, span)
+             for span in HR_SPANS}
+    busy = trace.busy_ns(evs, ctx.t0, ctx.t1) * 1e-6 / n_traced
+    print(json.dumps({"higherhrnet_w32": {
+        "card": smi, "busy_ms_per_frame_by_span": split,
+        "busy_ms_per_frame": busy,
+        "launches_per_frame": trace.launches(evs, ctx.t0, ctx.t1) / n_traced,
+        "host_frame_ms_untraced": host_ms,
+        "traced_frame_ms": secs * 1e3 / n_traced,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "top_device_ops": trace.top_device_ops(evs, ctx.t0, ctx.t1, 8)}}))
+    return split, launches
+
+
 def run_body25(cfg, frames):
     """BODY_25 on 720x1280 frames (368x656 network input, a 46x82 grid):
     the f32 and int8 detectors on their normal path, (N, 25, 3) poses; the
@@ -1655,6 +1898,7 @@ def run_body25(cfg, frames):
 
 
 def _wrappers():
+    from tpupose_torch.ops import ae_decode as ae
     from tpupose_torch.ops import blur_nms as bn
     from tpupose_torch.ops import conv7 as c7
     from tpupose_torch.ops import conv_s8 as cs
@@ -1668,7 +1912,7 @@ def _wrappers():
             "conv_s8": cs.conv_s8, "requant_epilogue": rq.requant_epilogue,
             "greedy_match": gm.greedy_match, "group_fold": gf.group_fold,
             "resize_u8_linear": rs.resize_u8_linear_batch,
-            "crop_tails": ct.crop_tails}
+            "crop_tails": ct.crop_tails, "refine_argmax": ae.refine_argmax}
 
 
 def _reset_counts():
@@ -4443,7 +4687,7 @@ def main() -> int:
                             "crop_tail")}
     libs = _cuda_build.build_all(["blur_nms", "conv7_s8", "conv_s8",
                                   "requant", "greedy_match", "group_fold",
-                                  "resize_u8", "crop_tail"])
+                                  "resize_u8", "crop_tail", "ae_refine"])
     print(f"built {sorted(libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
@@ -4483,6 +4727,10 @@ def main() -> int:
         0, 256, (2, 720, 1280, 3)).astype(np.uint8)
     body25_counts, _ = run_body25(cfg, frames720)
     print(f"phase 8b: BODY_25 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    refine_record = check_ae_refine()
+    _, hr_counts = run_higherhrnet(smi.stdout.strip())
+    print(f"phase 8c: HigherHRNet-W32 {time.perf_counter() - t0:.2f} s")
     serving_counts = run_serving(f32_det, qdet, pdet, face, cfg, frames,
                                  smi.stdout.strip())
     modes_counts = run_modes(f32_det, qdet, cfg, frames, smi.stdout.strip())
@@ -4500,7 +4748,8 @@ def main() -> int:
     launches = {name: quant_counts[name] + precise_counts[name]
                 + crop_counts[name] + serving_counts[name]
                 + modes_counts[name] + parallel_counts[name]
-                + body25_counts[name] for name in quant_counts}
+                + body25_counts[name] + hr_counts[name]
+                for name in quant_counts}
     for name, n in fast_counts.items():
         launches[name] += n
     # requant runs on the im2col route only: its launches are those of
@@ -4532,6 +4781,10 @@ def main() -> int:
         ("crop_tails", "tpupose_torch/csrc/crop_tail.cu",
          "none (plain XLA, tpupose/detectors/crop_keypoints.py:140)",
          tail_record),
+        # no TPU kernel: the JAX package has no associative-embedding net
+        ("refine_argmax", "tpupose_torch/csrc/ae_refine.cu",
+         "none (no associative-embedding decoder in tpupose/)",
+         refine_record),
     ]
     fusions = {"conv_s8": "requant_epilogue fused into an s8 implicit GEMM "
                           "for the 1x1 and 3x3 int8 layers (kernel route)",

@@ -1522,3 +1522,90 @@ if __name__ == "__main__":
     from test_torch_parallel import rank_main
 
     rank_main(_mesh_rank_checks)
+
+
+def _higherhrnet_case(device, size=128):
+    """The benchmark's HigherHRNet-W32 reference at a ``size`` input, its
+    seeded weights calibrated on two seeded frames, on
+    ``device``."""
+    from posebench.core import registry
+    from posebench.reference import higherhrnet as ref
+
+    cfg = registry.config("higherhrnet_w32")
+    cfg["input_size"] = size
+    params = ref.seeded_params(cfg, 2**31 + 99, device)
+    frames = np.random.RandomState(8).randint(
+        0, 256, (2, size * 9 // 8, size * 2, 3)).astype(np.uint8)
+    ref.calibrate(cfg, params, frames, device)
+    return cfg, params, frames, ref
+
+
+def test_higherhrnet_decode_on_the_card_equals_the_cpu(cuda_device):
+    """The decode's device half, NMS and top-k with the tag gather and the
+    adjust, then refine, on the card equal the CPU's on the same maps."""
+    from tpupose_torch.ops import ae_decode as ae
+    from tpupose_torch.topology import COCO17
+
+    cfg, params, frames, ref = _higherhrnet_case(cuda_device)
+    det, tags = ref.frame_maps(cfg, params, frames[1], cuda_device)
+    tags = tags.permute(3, 0, 1, 2).contiguous()
+    table = ae.top_k(det, tags).cpu()
+    assert torch.equal(table, ae.top_k(det.cpu(), tags.cpu()))
+    groups = ae.match_by_tag(table.numpy(), COCO17.match_order)
+    persons, joints = np.nonzero(groups[:, :, 2] <= 0)
+    assert len(persons) > 0
+    means = ae.person_means(groups)[persons]
+    on_card = ae.refine(det, tags, joints, means).cpu()
+    assert torch.equal(on_card, ae.refine(det.cpu(), tags.cpu(), joints,
+                                          means))
+    nj = det.shape[0]
+    flat, tg = det.reshape(nj, -1), tags.reshape(2, nj, -1)
+    m = torch.from_numpy(means).cuda()
+    launches = ae.refine_argmax.launches
+    kernel = ae.refine_argmax(flat, tg, m, joints)
+    assert ae.refine_argmax.launches == launches + 1
+    assert torch.equal(kernel, ae.refine_argmax_plain(flat, tg, m, joints))
+
+
+def test_refine_kernel_ties_on_the_card(cuda_device):
+    """The refine kernel equals its plain version where scores tie: two
+    pixels of one best score (the first wins), -0 beside +0 (equal), and
+    more pairs of one joint than a block holds."""
+    from tpupose_torch.ops import ae_decode as ae
+
+    rng = np.random.RandomState(5)
+    nj, hw = 3, 5000
+    det = torch.from_numpy(rng.uniform(-0.5, 0.2, (nj, hw)).astype(
+        np.float32)).cuda()
+    tg = torch.from_numpy(rng.uniform(-2, 2, (2, nj, hw)).astype(
+        np.float32)).cuda()
+    det[0, 4000] = det[0, 1234] = 0.9                 # a tie of the best
+    tg[:, 0, 4000] = tg[:, 0, 1234] = 0.5
+    det[1] = -1.0
+    det[1, 17], det[1, 300] = -0.0, 0.0               # -0 and +0, both best
+    tg[:, 1] = 0.25
+    joints = np.array([0, 0, 1, 2] + [2] * 40)
+    means = np.full((len(joints), 2), 0.5, np.float32)
+    means[2] = 0.25
+    means[4:] = rng.uniform(-1, 1, (40, 2))
+    m = torch.from_numpy(means).cuda()
+    got = ae.refine_argmax(det, tg, m, joints)
+    assert torch.equal(got, ae.refine_argmax_plain(det, tg, m, joints))
+    assert got[:3].tolist() == [1234, 1234, 17]
+
+
+def test_higherhrnet_detector_on_the_card_equals_the_reference(cuda_device):
+    """``PoseDetector("higherhrnet_w32")`` on the card answers the
+    benchmark's reference (BN folded, on the card) bit for bit."""
+    from tpupose_torch.ops import ae_decode as ae
+
+    cfg, params, frames, ref = _higherhrnet_case(cuda_device)
+    det = PoseDetector("higherhrnet_w32", device="cuda",
+                       cfg=ae.AEConfig(input_size=cfg["input_size"]))
+    det.model.load_state_dict(params)
+    want = ref.pose_answers(cfg, params, frames, "cuda")
+    for frame, (poses, scores, _, _) in zip(frames, want):
+        got, got_scores = det.collect(det.submit(frame))
+        assert len(poses) > 0
+        assert np.array_equal(got, poses)
+        assert np.array_equal(got_scores, scores)

@@ -35,28 +35,31 @@ def _colors(base, n: int):
 def draw_person_pose(orig_img: np.ndarray, poses,
                      topology: Topology = COCO18) -> np.ndarray:
     """(N, J, 3) poses over ``orig_img``: each pair of ``topology`` as a
-    line (the non-spawning shoulder-ear pairs are not drawn), each part as
-    a dot."""
+    line (the non-spawning shoulder-ear pairs are not drawn), or each edge
+    of its skeleton where it has no pairs (COCO-17), each part as a
+    dot."""
     import cv2
 
     if len(poses) == 0:
         return orig_img
     canvas = orig_img.copy()
 
-    limb_colors = _colors(_LIMB_COLORS, topology.num_limbs)
-    for pose in np.asarray(poses).round().astype(int):
-        for i, ((ja, jb), color) in enumerate(zip(topology.limbs,
-                                                  limb_colors)):
+    poses = np.asarray(poses)
+    present = poses[..., 2] != 0      # a flag, or a joint's value
+    xy = poses[..., :2].round().astype(int)
+    edges = topology.skeleton or topology.limbs
+    limb_colors = _colors(_LIMB_COLORS, len(edges))
+    for pose, seen in zip(xy, present):
+        for i, ((ja, jb), color) in enumerate(zip(edges, limb_colors)):
             if i in topology.non_spawning:  # no shoulder-ear connections
                 continue
-            if pose[ja][2] != 0 and pose[jb][2] != 0:
-                cv2.line(canvas, tuple(pose[ja][:2]), tuple(pose[jb][:2]),
-                         color, 2)
+            if seen[ja] and seen[jb]:
+                cv2.line(canvas, tuple(pose[ja]), tuple(pose[jb]), color, 2)
     joint_colors = _colors(_JOINT_COLORS, topology.num_joints)
-    for pose in np.asarray(poses).round().astype(int):
-        for (x, y, v), color in zip(pose, joint_colors):
-            if v != 0:
-                cv2.circle(canvas, (x, y), 3, color, -1)
+    for pose, seen in zip(xy, present):
+        for (x, y), v, color in zip(pose, seen, joint_colors):
+            if v:
+                cv2.circle(canvas, (int(x), int(y)), 3, color, -1)
     return canvas
 
 

@@ -56,9 +56,10 @@ class DetectorNet:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"{owner}(device={device!r}): CUDA is not available")
-        if arch == "body25" and (params is not None or weights_file):
-            raise ValueError(f"{owner}(arch='body25'): no weight loader "
-                             "for BODY_25 yet; it runs seeded weights")
+        if (arch in ("body25", "higherhrnet_w32")
+                and (params is not None or weights_file)):
+            raise ValueError(f"{owner}(arch={arch!r}): no weight loader "
+                             "for it yet; it runs seeded weights")
         self.arch = arch
         model = ARCHS[arch](seed=seed, dtype=compute_dtype)
         if params is not None:

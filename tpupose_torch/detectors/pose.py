@@ -1,10 +1,13 @@
 """PoseDetector (port of ``tpupose/detectors/pose.py``): the fast single-scale
 path, the precise multi-scale pyramid, and the w8a8 int8 forward.
 
-``detector(img) -> (poses, scores)`` with ``poses: (N, J, 3)`` rows of
-``(x, y, 2)`` in original image pixels, J the parts of the architecture's
-skeleton (``models.ARCHS[arch].topology``: 18 for ``posenet``, 25 for
-``body25``), which the whole postprocess reads.
+``detector(img) -> (poses, scores)`` with ``poses: (N, J, 3)`` in
+original image pixels, J the parts of the architecture's skeleton
+(``models.ARCHS[arch].topology``: 18 for ``posenet``, 25 for ``body25``,
+17 for ``higherhrnet_w32``), which the whole postprocess reads.  The
+architecture's ``decoder`` selects what follows the net: part affinity
+fields (``posenet``, ``body25``; rows ``(x, y, 2)``), or associative
+embedding (``higherhrnet_w32``; rows ``(x, y, value)``), below.
 
 Fast path, per frame: a host resize of the uint8 frame (cv2's
 INTER_LINEAR in compiled C++, ``resize_u8_linear``, so no cv2 is needed)
@@ -66,6 +69,21 @@ paths, which pass no weights and use the detector's own.
 
 The network (model, weights, int8 forward, ``float32_numerics``) is
 ``detectors/net.py``'s ``DetectorNet``, held as ``self.net``.
+
+Associative embedding (``higherhrnet_w32``, ``ops/ae_decode.py``): the
+architecture's ``decoder`` makes ``PoseDetector(arch)`` an
+``AEPoseDetector``, once, at construction; its settings are an
+``AEConfig`` in place of ``cfg``.  ``pose.resize`` (the frame resized
+onto its region of the 64-multiple canvas), then in the program span
+``pose.upload``, ``pose.forward`` (the RGB ImageNet normaliser, the frame
+and its mirror as one batch-2 eager forward; the maps' aggregation in
+the ``hr.head`` span), ``pose.postprocess`` (``ae.topk``:
+NMS, top-k and the tag gather, the table's copy to the host queued); in
+``collect``, ``pose.fetch`` holds ``ae.match`` (the wait for the table
+and the host match) and ``ae.refine`` (refine on the device, one copy
+back).  ``submit`` makes no synchronising call.  ``detect_batch``, the
+precise pyramid, ``quantize()``, meshes, bfloat16 and the serving
+bundle raise ``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -79,8 +97,10 @@ import torch
 from torch.utils import _pytree as pytree
 
 from tpupose_torch.config import INFERENCE, InferenceConfig
+from tpupose_torch.detectors import net as _net
 from tpupose_torch.detectors.net import (DetectorNet, NetHolder,
                                          float32_numerics)
+from tpupose_torch.ops import ae_decode as ae
 from tpupose_torch.ops.postprocess import PoseResult, postprocess_pose
 from tpupose_torch.ops.resize import (compute_optimal_size, resize_chainer,
                                       resize_cv2_cubic, resize_u8_cubic,
@@ -187,7 +207,14 @@ def emit_result(result: PoseResult, scale_x: float, scale_y: float,
 class PoseDetector(NetHolder):
     """Multi-person pose detector; the whole per-frame pipeline after the
     host resize (fast path) or the upload (precise path) runs on
-    ``device``."""
+    ``device``.  An associative-embedding architecture gets an
+    ``AEPoseDetector``."""
+
+    def __new__(cls, arch: str = "posenet", *args, **kwargs):
+        if cls is PoseDetector and getattr(
+                _net.ARCHS.get(arch), "decoder", "paf") == AE_DECODER:
+            cls = AEPoseDetector
+        return super().__new__(cls)
 
     def __init__(self, arch: str = "posenet",
                  weights_file: Optional[str] = None,
@@ -204,8 +231,8 @@ class PoseDetector(NetHolder):
         or ``torch.bfloat16``, the network's compute dtype; the parameters
         are stored in it.  ``mesh``: ``detect_batch`` runs on it (every
         rank builds the detector; the device is the mesh's and the weights
-        are broadcast from rank 0).  ``arch="body25"`` has no weight
-        file yet: it takes its seeded weights only."""
+        are broadcast from rank 0).  ``arch="body25"`` has no weight file
+        yet: it takes its seeded weights only."""
         self.net = DetectorNet(arch, mesh.device if mesh is not None
                                else device, type(self).__name__,
                                weights_file, params, seed, compute_dtype)
@@ -658,6 +685,112 @@ class PoseDetector(NetHolder):
         return self.collect(self.submit(orig_img))
 
 
+AE_DECODER = "associative_embedding"
+
+
+class AEPoseDetector(PoseDetector):
+    """``PoseDetector`` of an associative-embedding architecture
+    (``higherhrnet_w32``), which ``PoseDetector(arch)`` builds from the
+    arch's ``decoder``: ``__call__``, ``submit``/``collect`` and
+    ``compute_maps`` of one frame at a time, float32, with
+    ``ops/ae_decode.py``'s decoder after the net.  Its ``cfg`` is an
+    ``ae_decode.AEConfig`` (default: the published 512).  It takes no
+    weight file (seeded weights only).  The precise pyramid, meshes,
+    ``quantize()``, ``detect_batch`` and the serving bundle raise
+    ``NotImplementedError``."""
+
+    def __init__(self, arch: str, weights_file: Optional[str] = None,
+                 params=None, precise: bool = False,
+                 cfg=INFERENCE, device="cuda", seed: int = 0,
+                 compute_dtype: torch.dtype = torch.float32,
+                 mesh: Optional[Mesh] = None):
+        if precise or mesh is not None:
+            self._unsupported("precise=True" if precise else "mesh=")
+        if cfg is INFERENCE:
+            cfg = ae.AE_DEFAULTS
+        elif not isinstance(cfg, ae.AEConfig):
+            raise TypeError(f"PoseDetector(arch={arch!r}) takes an "
+                            "ae_decode.AEConfig as cfg")
+        self.net = DetectorNet(arch, device, "PoseDetector", weights_file,
+                               params, seed, compute_dtype)
+        self.device = self.net.device
+        self.arch = arch
+        self.precise = False
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.topology = self.model.topology
+        self.mesh = None
+
+    def _unsupported(self, what: str):
+        raise NotImplementedError(
+            f"{what} is not implemented for the associative-embedding "
+            "decoder: it runs __call__ and submit/collect, float32, one "
+            "frame at a time")
+
+    def quantize(self, *args, **kwargs):
+        self._unsupported("quantize()")
+
+    def host_weights(self):
+        self._unsupported("the serving bundle")
+
+    def program_weights(self, device=None):
+        self._unsupported("the serving bundle")
+
+    def detect_precise(self, orig_img: np.ndarray):
+        self._unsupported("the precise pyramid")
+
+    def detect_batch(self, imgs: np.ndarray):
+        self._unsupported("detect_batch")
+
+    def compute_maps_batch(self, imgs: np.ndarray):
+        self._unsupported("compute_maps_batch")
+
+    def _ae_run(self, img: np.ndarray, postprocess: bool):
+        """One (H, W, 3) frame to its ``AEPending`` (``postprocess``), or
+        to its maps, heatmaps (J, H, W) and tags (2, J, H, W) at the
+        network input; plus the geometry."""
+        geom = ae.ae_geometry(*img.shape[:2], self.cfg.input_size)
+        with annotate("pose.resize"):
+            canvas = ae.place_frame(img, geom,
+                                    pin=self.device.type == "cuda")[None]
+        with annotate(f"pose_fast_{geom.in_hw[0]}x{geom.in_hw[1]}"):
+            with annotate("pose.upload"):
+                u8 = to_device(canvas, self.device)
+            with annotate("pose.forward"), float32_numerics(), \
+                    torch.no_grad():
+                out0, out1 = self.model(ae.with_mirror(ae.normalise(u8)))
+                with annotate("hr.head"):
+                    det, tags = ae.aggregate(out0, out1,
+                                             self.topology.flip_index,
+                                             geom.in_hw)
+            if not postprocess:
+                return (det, tags), geom
+            with annotate("pose.postprocess"), annotate("ae.topk"), \
+                    torch.no_grad():
+                table = ae.top_k(det, tags)
+                return ae.start_fetch(det, tags, table, geom), geom
+
+    def compute_maps(self, orig_img: np.ndarray):
+        """The (heatmaps (J, H, W), tags (2, J, H, W)) maps at the network
+        input, and the frame pixels per input pixel (x, y)."""
+        maps, geom = self._ae_run(np.asarray(orig_img), False)
+        return maps, geom.scale
+
+    def submit(self, orig_img: np.ndarray):
+        """Queue one frame up to its candidate table's copy to the host;
+        returns the pending frame for ``collect``, with no synchronising
+        call."""
+        return self._ae_run(np.asarray(orig_img), True)[0]
+
+    def collect(self, pending):
+        """The host match and the refine of a ``submit`` handle; (poses
+        (N, J, 3) as x, y, value in frame pixels, scores)."""
+        with annotate("pose.fetch"), torch.no_grad():
+            persons, scores = ae.ae_decode(pending,
+                                           self.topology.match_order)
+            return ae.final_poses(persons, pending.geom), scores
+
+
 def _check_replicated(qtree, mesh: Mesh) -> None:
     """Raise unless every rank of ``mesh`` holds the same int8 tree: a
     48-bit digest of its arrays, its minimum and maximum over the world
@@ -694,8 +827,8 @@ def _check_replicated(qtree, mesh: Mesh) -> None:
 def _main(argv=None):
     """The JAX package's pose CLI:
     ``python -m tpupose_torch.detectors.pose posenet <npz> --img x.png
-    [--precise] [--device cpu]``; ``body25`` takes no weight file (its
-    seeded weights)."""
+    [--precise] [--device cpu]``; ``body25`` and ``higherhrnet_w32`` take
+    no weight file (their seeded weights)."""
     import argparse
 
     import cv2
@@ -703,9 +836,10 @@ def _main(argv=None):
     from tpupose_torch.detectors.draw import draw_person_pose
 
     p = argparse.ArgumentParser(description="Pose detector")
-    p.add_argument("arch", choices=("posenet", "body25"))
+    p.add_argument("arch", choices=("posenet", "body25", "higherhrnet_w32"))
     p.add_argument("weights", nargs="?",
-                   help="weights file path (.npz); none for body25")
+                   help="weights file path (.npz); none for body25 and "
+                   "higherhrnet_w32")
     p.add_argument("--img", "-i", required=True, help="image file path")
     p.add_argument("--precise", action="store_true",
                    help="multi-scale precise inference")

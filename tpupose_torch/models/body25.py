@@ -129,6 +129,7 @@ class Body25Net(nn.Module):
     dtype (float32 or bfloat16 over float32 parameters, see ``cpm``)."""
 
     topology = BODY25
+    decoder = "paf"
 
     def __init__(self, seed: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()

@@ -28,6 +28,7 @@ class CocoPoseNet(nn.Module):
     """
 
     topology = COCO18
+    decoder = "paf"
 
     def __init__(self, num_stages: int = 6, seed: int = 0,
                  dtype: torch.dtype = torch.float32):

@@ -16,6 +16,10 @@ background.
   ``POSE_MAP_INDEX`` order replaces it once trained weights are loaded.
   As for COCO, the two shoulder-ear pairs (``2-17`` and ``5-18``) never
   spawn a person.
+- ``COCO17``: the 17 COCO keypoints of an associative-embedding net
+  (HigherHRNet): no PAF pairs and no background channel; COCO's 19-edge
+  skeleton to draw, the flip index that mirrors a left part onto its
+  right, and the order in which ``match_by_tag`` takes the parts.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ class Topology:
     parts: Tuple[str, ...]
     limbs: Tuple[Tuple[int, int], ...]
     non_spawning: Tuple[int, ...]
+    skeleton: Tuple[Tuple[int, int], ...] = ()   # drawn where no PAF pairs
+    flip_index: Tuple[int, ...] = ()
+    match_order: Tuple[int, ...] = ()
 
     @property
     def num_joints(self) -> int:
@@ -98,6 +105,28 @@ BODY25 = Topology(
     parts=BODY25_PARTS,
     limbs=BODY25_LIMBS,
     non_spawning=(BODY25_LIMBS.index((2, 17)), BODY25_LIMBS.index((5, 18))),
+)
+
+
+COCO17_PARTS: Tuple[str, ...] = (
+    "nose", "left_eye", "right_eye", "left_ear", "right_ear",
+    "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
+    "left_wrist", "right_wrist", "left_hip", "right_hip", "left_knee",
+    "right_knee", "left_ankle", "right_ankle",
+)
+
+COCO17 = Topology(
+    name="coco17",
+    parts=COCO17_PARTS,
+    limbs=(),
+    non_spawning=(),
+    # COCO's skeleton (person_keypoints annotations), 0-based
+    skeleton=((15, 13), (13, 11), (16, 14), (14, 12), (11, 12), (5, 11),
+              (6, 12), (5, 6), (5, 7), (6, 8), (7, 9), (8, 10), (1, 2),
+              (0, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 6)),
+    flip_index=(0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15),
+    # HigherHRNet's Params.joint_order, 0-based
+    match_order=(0, 1, 2, 3, 4, 5, 6, 11, 12, 7, 8, 9, 10, 13, 14, 15, 16),
 )
 
 
